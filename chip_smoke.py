@@ -18,7 +18,8 @@ run from the root of a checkout. Phases, each of which raises on failure:
    counts of both kernels read around this phase alone;
 4. time the transforms (hopper planner, torch planner, torch.fft) and each
    kernel alone at its main-path shape, as medians of 10 CUDA-event timed
-   runs after warm-up.
+   runs after warm-up, then trace one call of each transform with
+   torch.profiler (device time by kernel, device busy share).
 
 The last two lines are the kernel table as one JSON object, then the card
 label, then {"ok": true, "device": {...}}. It needs one GPU and exits
@@ -40,7 +41,7 @@ SEED = 0
 FP32_PEAK = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores (published)
 HBM_PEAK = 3.35e12   # H100 SXM HBM3 bytes/s (published)
 FOUR_STEP_SWEEP = [(8, 8), (16, 16), (16, 32), (32, 64), (128, 128), (8, 128),
-                   (128, 8), (25, 40), (125, 8), (7, 3)]
+                   (128, 8), (25, 40), (125, 8), (7, 3), (4, 9), (128, 1)]
 
 
 def check(cond: bool, what: str) -> None:
@@ -135,7 +136,8 @@ def max_err(pair, ref) -> float:
 
 
 def phase_main_path(planner, x, z) -> dict:
-    """The public entry points at real size; returns launches and errors."""
+    """The public entry points at real size, checked; returns the launch
+    counts of this phase alone."""
     import repro_torch
     from repro_torch import kernels
     torch.cuda.synchronize()
@@ -231,6 +233,34 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
     return out
 
 
+def phase_profile(label, planner, x, z) -> None:
+    """One traced call of each transform: device time by kernel, and the
+    device's busy share of the call's wall time."""
+    import repro_torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, run in (("rfftn 16384^2", lambda: repro_torch.rfftn(
+            x, planner=planner)), ("fftn 512^3", lambda: repro_torch.fftn(
+                z, planner=planner))):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"profile {name} hopper: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) [{label}]")
+        for e in rows[:8]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
+                  f"{e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -283,6 +313,7 @@ def main() -> int:
     # phase 4: times
     planners = {"hopper": planner, "torch": Planner(backends=("torch",))}
     times = phase_times(label, planners, x, z, main_shapes, gen)
+    phase_profile(label, planner, x, z)
 
     head = times["rfftn column pass"]
     table = {"kernels": [

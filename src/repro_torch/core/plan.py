@@ -73,10 +73,10 @@ class HardwareSpec:
 # "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name, power.limit): float32
 # torch.matmul 8192^3 with TF32 off, and a 1 GiB device-to-device copy
 # (bytes read + written). link_bw is NVLink's published 450 GB/s each way;
-# matmul_dim is the four-step kernel's register tile (16 k1 outputs per
-# thread); vmem_bytes is the 50 MB L2.
-H100 = HardwareSpec("h100", flops=51.0e12, hbm_bw=2.9e12, link_bw=450e9,
-                    matmul_dim=16, vmem_bytes=50 * 2 ** 20)
+# matmul_dim is the four-step kernel's register tile (8 columns per thread);
+# vmem_bytes is the 50 MB L2.
+H100 = HardwareSpec("h100", flops=51.33e12, hbm_bw=2.974e12, link_bw=450e9,
+                    matmul_dim=8, vmem_bytes=50 * 2 ** 20)
 CPU_LOCAL = HardwareSpec("cpu_local", flops=5e9, hbm_bw=20e9, link_bw=1e9,
                          matmul_dim=8, vmem_bytes=32 * 2 ** 20)
 
@@ -230,22 +230,6 @@ class Planner:
                               "est": best.est_cost,
                               "measured": best.measured_cost})
         return best
-
-    # -- N-D decomposition planning (the guru interface) ----------------------
-
-    def plan_nd(self, shape, kind: str = "c2c", mesh=None, axes=None,
-                mode: Optional[str] = None, comm="auto", decomp=None,
-                output_layout: str = "natural"):
-        """Plan an N-D transform with THIS planner's hardware profile,
-        wisdom store and device (delegates to
-        :func:`repro_torch.core.api.plan_nd`).  ``mode`` defaults to the
-        planner's own mode."""
-        from .api import plan_nd
-        if mode is None:
-            mode = self.mode
-        return plan_nd(shape, kind, mesh=mesh, axes=axes, mode=mode,
-                       comm=comm, planner=self, decomp=decomp,
-                       output_layout=output_layout, device=self.device)
 
     # -- measured planning (FFTW MEASURE) -------------------------------------
 

@@ -25,8 +25,6 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
 
 def sources() -> Dict[str, Path]:
     """Kernel name (the source's stem) -> its ``.cu`` file."""
@@ -87,7 +85,5 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, building all kernels if needed."""
-    if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
-    return _LIBS[name]
+    """Load the library of one kernel, building all kernels if needed."""
+    return ctypes.CDLL(str(build_all()[name]))

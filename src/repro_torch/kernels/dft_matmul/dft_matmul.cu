@@ -8,151 +8,202 @@
 //   C[k1, k2]  = sum_c B'[k1, c] * W2[c, k2]               (DFT_n2)
 //   X[k2*n1 + k1] = C[k1, k2]   (digit transpose; C flat when PERMUTED)
 //
-// What bounds it: at the main-path shapes (n = 128*128 or 32*16) the work is
-// 8*n*(n1+n2) flops per row against 16*n bytes, i.e. 256 flops per byte at
-// n = 16384, so it is bound by operations. The reference holds the result to
-// atol = 1e-4*scale, which TF32 tensor cores miss, so the arithmetic is FP32
-// FMA on the CUDA cores.
+// What bounds it: 8*n*(n1+n2) flops per row against 16*n bytes, i.e. 256
+// flops per byte at n = 128*128, so operations. The reference holds the
+// result to atol = 1e-4*scale, which TF32 tensor cores miss, so the
+// arithmetic is FP32 FMA on the CUDA cores.
 //
-// Design: one CTA holds `rows_per_cta` rows. Stage 1 reads x straight from
-// device memory (every element is re-read once per 16-wide k1 tile, from L1/L2)
-// and writes B' = twiddled DFT_n1 into dynamic shared memory, so the twiddle
-// product never goes back to device memory, which is the point of the TPU
-// kernel. Stage 3 contracts B' from shared memory with W2 and writes X. Each
-// thread keeps a register tile of kTile outputs along k1, so one load of x (or
-// of W2) feeds kTile complex multiply-adds, and a warp's W1 (or B') loads are
-// uniform across its lanes (broadcast). Karatsuba keeps the three real sums
-// (ar*wr, ai*wi, (ar+ai)*(wr+wi)) apart exactly as the reference's three
-// matmuls do. A row of 128*128 fills 128 KiB of shared memory, above the
-// 48 KiB default, hence cudaFuncSetAttribute.
+// Design: a CTA holds `rows_per_cta` whole rows in shared memory (one row of
+// 128*128 is 128 KiB, above the 48 KiB default, hence cudaFuncSetAttribute),
+// as the TPU kernel holds its block in VMEM, and every intermediate stays
+// there: x is read from device memory once, the twiddled B' overwrites A in
+// place, C is staged back in output order, and X is written once, both
+// passes coalesced. Each thread owns a 4 x 8 register tile of outputs (4
+// consecutive k1 by 8 columns strided across the row), so one step of a
+// contraction loads 12 complex values for 32 complex multiply-adds, and the
+// shared-memory rows are padded by one element so that the strided reads of
+// the second contraction fall in different banks. All threads hold their
+// tile at once, so the in-place writes wait for one barrier. Karatsuba keeps
+// the three real sums (ar*wr, ai*wi, (ar+ai)*(wr+wi)) apart exactly as the
+// reference's three matmuls do.
 
+#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 512;     // threads per CTA
-constexpr int kTile = 16;         // k1 outputs per thread (register tile)
-constexpr int kElemsPerCta = 8192;  // rows per CTA = max(1, kElemsPerCta / n)
+constexpr int kThreads = 512;   // threads per CTA; one tile each
+constexpr int kTileK = 4;       // consecutive k1 per thread
+constexpr int kTileC = 8;       // columns (c, then k2) per thread, strided
 constexpr int kMaxFactor = 128;
+constexpr int kMaxSmem = 227 * 1024;
 
 template <bool KARATSUBA>
 struct Acc;
 
 template <>
 struct Acc<false> {
-  float re[kTile], im[kTile];
+  float re[kTileK][kTileC], im[kTileK][kTileC];
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int t = 0; t < kTile; ++t) re[t] = im[t] = 0.f;
+    for (int p = 0; p < kTileK; ++p)
+#pragma unroll
+      for (int q = 0; q < kTileC; ++q) re[p][q] = im[p][q] = 0.f;
   }
-  __device__ __forceinline__ void mac(int t, float ar, float ai, float wr, float wi) {
-    re[t] = fmaf(ar, wr, re[t]);
-    re[t] = fmaf(-ai, wi, re[t]);
-    im[t] = fmaf(ar, wi, im[t]);
-    im[t] = fmaf(ai, wr, im[t]);
+  __device__ __forceinline__ void mac(int p, int q, float2 a, float2 w) {
+    re[p][q] = fmaf(a.x, w.x, re[p][q]);
+    re[p][q] = fmaf(-a.y, w.y, re[p][q]);
+    im[p][q] = fmaf(a.x, w.y, im[p][q]);
+    im[p][q] = fmaf(a.y, w.x, im[p][q]);
   }
-  __device__ __forceinline__ float2 get(int t) const { return make_float2(re[t], im[t]); }
+  __device__ __forceinline__ float2 get(int p, int q) const {
+    return make_float2(re[p][q], im[p][q]);
+  }
 };
 
 template <>
 struct Acc<true> {
-  float p1[kTile], p2[kTile], p3[kTile];
+  float p1[kTileK][kTileC], p2[kTileK][kTileC], p3[kTileK][kTileC];
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int t = 0; t < kTile; ++t) p1[t] = p2[t] = p3[t] = 0.f;
+    for (int p = 0; p < kTileK; ++p)
+#pragma unroll
+      for (int q = 0; q < kTileC; ++q) p1[p][q] = p2[p][q] = p3[p][q] = 0.f;
   }
-  __device__ __forceinline__ void mac(int t, float ar, float ai, float wr, float wi) {
-    p1[t] = fmaf(ar, wr, p1[t]);
-    p2[t] = fmaf(ai, wi, p2[t]);
-    p3[t] = fmaf(ar + ai, wr + wi, p3[t]);
+  __device__ __forceinline__ void mac(int p, int q, float2 a, float2 w) {
+    p1[p][q] = fmaf(a.x, w.x, p1[p][q]);
+    p2[p][q] = fmaf(a.y, w.y, p2[p][q]);
+    p3[p][q] = fmaf(a.x + a.y, w.x + w.y, p3[p][q]);
   }
-  __device__ __forceinline__ float2 get(int t) const {
-    return make_float2(p1[t] - p2[t], p3[t] - p1[t] - p2[t]);
+  __device__ __forceinline__ float2 get(int p, int q) const {
+    return make_float2(p1[p][q] - p2[p][q], p3[p][q] - p1[p][q] - p2[p][q]);
   }
 };
 
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
 // w1: (n1, n1), tw: (n1, n2), w2: (n2, n2), all complex interleaved (float2).
 template <bool KARATSUBA, bool PERMUTED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  const float2* __restrict__ w1, const float2* __restrict__ tw,
                  const float2* __restrict__ w2, float* __restrict__ yr,
                  float* __restrict__ yi, long long rows, int n1, int n2,
                  int rows_per_cta) {
-  extern __shared__ float2 sb[];  // B'[r][k1][c], rows_per_cta * n1 * n2
+  extern __shared__ float2 sa[];
   const int n = n1 * n2;
+  const int ld = n2 + 1;          // row stride of A, B' and (permuted) C
+  const int ldo = n1 + 1;         // row stride of C in output order
+  const int s = (n2 + kTileC - 1) / kTileC;
+  const int tiles = ((n1 + kTileK - 1) / kTileK) * s;
   const long long row0 = (long long)blockIdx.x * rows_per_cta;
   const int nrows = (int)min((long long)rows_per_cta, rows - row0);
-  const int chunks = (n1 + kTile - 1) / kTile;
-  const int items = nrows * chunks * n2;
+  const long long base = row0 * n;
 
-  // stage 1 + 2: DFT_n1 down the columns, twiddle, into shared memory
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int c = it % n2;
-    const int q = it / n2;
-    const int k0 = (q % chunks) * kTile;
-    const int r = q / chunks;
-    const int kn = min(kTile, n1 - k0);
-    const long long base = (row0 + r) * (long long)n + c;
-    Acc<KARATSUBA> acc;
-    acc.zero();
+  // stage 0: the CTA's rows into shared memory, A[r][j][c]
+  for (int e = threadIdx.x; e < nrows * n; e += kThreads) {
+    const int r = e / n, i = e - r * n, j = i / n2, c = i - j * n2;
+    sa[(r * n1 + j) * ld + c] = make_float2(__ldg(xr + base + e),
+                                            __ldg(xi + base + e));
+  }
+  __syncthreads();
+
+  // this thread's tile: row r, k1 in k0..k0+3, columns cs + s*q
+  const int r = threadIdx.x / tiles;
+  const int rem = threadIdx.x - r * tiles;
+  const int k0 = (rem / s) * kTileK;
+  const int cs = rem - (rem / s) * s;
+  const bool active = r < nrows;
+  int kk[kTileK], cc[kTileC];     // clamped, so reads stay in bounds
+#pragma unroll
+  for (int p = 0; p < kTileK; ++p) kk[p] = min(k0 + p, n1 - 1);
+#pragma unroll
+  for (int q = 0; q < kTileC; ++q) cc[q] = min(cs + s * q, n2 - 1);
+  float2* row = sa + r * n1 * ld;
+
+  // stage 1: DFT_n1 down the columns
+  Acc<KARATSUBA> acc;
+  acc.zero();
+  if (active) {
+#pragma unroll 2
     for (int j = 0; j < n1; ++j) {
-      const float ar = __ldg(xr + base + (long long)j * n2);
-      const float ai = __ldg(xi + base + (long long)j * n2);
-      const float2* w = w1 + j * n1 + k0;
+      float2 a[kTileC], w[kTileK];
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        if (t < kn) {
-          const float2 v = __ldg(w + t);
-          acc.mac(t, ar, ai, v.x, v.y);
-        }
-      }
-    }
+      for (int q = 0; q < kTileC; ++q) a[q] = row[j * ld + cc[q]];
 #pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      if (t < kn) {
-        const int k1 = k0 + t;
-        const float2 b = acc.get(t);
-        const float2 s = __ldg(tw + k1 * n2 + c);
-        sb[(r * n1 + k1) * n2 + c] =
-            make_float2(b.x * s.x - b.y * s.y, b.x * s.y + b.y * s.x);
-      }
+      for (int p = 0; p < kTileK; ++p) w[p] = __ldg(w1 + j * n1 + kk[p]);
+#pragma unroll
+      for (int p = 0; p < kTileK; ++p)
+#pragma unroll
+        for (int q = 0; q < kTileC; ++q) acc.mac(p, q, a[q], w[p]);
     }
   }
   __syncthreads();
 
-  // stage 3 (+ 4): DFT_n2 along the rows of B', digit transpose on the store
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int k2 = it % n2;
-    const int q = it / n2;
-    const int k0 = (q % chunks) * kTile;
-    const int r = q / chunks;
-    const int kn = min(kTile, n1 - k0);
-    const float2* b = sb + (r * n1 + k0) * n2;
-    Acc<KARATSUBA> acc;
-    acc.zero();
-    for (int c = 0; c < n2; ++c) {
-      const float2 w = __ldg(w2 + c * n2 + k2);
+  // stage 2: twiddle, B' over A in place
+  if (active) {
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        if (t < kn) {
-          const float2 v = b[t * n2 + c];
-          acc.mac(t, v.x, v.y, w.x, w.y);
+    for (int p = 0; p < kTileK; ++p)
+#pragma unroll
+      for (int q = 0; q < kTileC; ++q) {
+        const int k1 = k0 + p, c = cs + s * q;
+        if (k1 < n1 && c < n2)
+          row[k1 * ld + c] = cmul(acc.get(p, q), __ldg(tw + k1 * n2 + c));
+      }
+  }
+  __syncthreads();
+
+  // stage 3: DFT_n2 along the rows of B'
+  acc.zero();
+  if (active) {
+#pragma unroll 2
+    for (int c = 0; c < n2; ++c) {
+      float2 b[kTileK], w[kTileC];
+#pragma unroll
+      for (int p = 0; p < kTileK; ++p) b[p] = row[kk[p] * ld + c];
+#pragma unroll
+      for (int q = 0; q < kTileC; ++q) w[q] = __ldg(w2 + c * n2 + cc[q]);
+#pragma unroll
+      for (int p = 0; p < kTileK; ++p)
+#pragma unroll
+        for (int q = 0; q < kTileC; ++q) acc.mac(p, q, b[p], w[q]);
+    }
+  }
+  __syncthreads();
+
+  // stage 4: C into shared memory in output order (the digit transpose)
+  if (active) {
+#pragma unroll
+    for (int p = 0; p < kTileK; ++p)
+#pragma unroll
+      for (int q = 0; q < kTileC; ++q) {
+        const int k1 = k0 + p, k2 = cs + s * q;
+        if (k1 < n1 && k2 < n2) {
+          if (PERMUTED)
+            row[k1 * ld + k2] = acc.get(p, q);
+          else
+            sa[(r * n2 + k2) * ldo + k1] = acc.get(p, q);
         }
       }
+  }
+  __syncthreads();
+
+  // stage 5: the CTA's rows out, coalesced
+  for (int e = threadIdx.x; e < nrows * n; e += kThreads) {
+    const int rr = e / n, i = e - rr * n;
+    float2 v;
+    if (PERMUTED) {
+      const int k1 = i / n2, k2 = i - k1 * n2;
+      v = sa[(rr * n1 + k1) * ld + k2];
+    } else {
+      const int k2 = i / n1, k1 = i - k2 * n1;
+      v = sa[(rr * n2 + k2) * ldo + k1];
     }
-    const long long base = (row0 + r) * (long long)n;
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      if (t < kn) {
-        const int k1 = k0 + t;
-        const int idx = PERMUTED ? k1 * n2 + k2 : k2 * n1 + k1;
-        const float2 o = acc.get(t);
-        yr[base + idx] = o.x;
-        yi[base + idx] = o.y;
-      }
-    }
+    yr[base + e] = v.x;
+    yi[base + e] = v.y;
   }
 }
 
@@ -160,18 +211,20 @@ template <bool KARATSUBA, bool PERMUTED>
 cudaError_t launch(const float* xr, const float* xi, const float2* w1,
                    const float2* tw, const float2* w2, float* yr, float* yi,
                    long long rows, int n1, int n2, cudaStream_t stream) {
-  const int n = n1 * n2;
-  long long rows_per_cta = kElemsPerCta / n;
-  if (rows_per_cta < 1) rows_per_cta = 1;
-  if (rows_per_cta > rows) rows_per_cta = rows;
+  const int tiles = ((n1 + kTileK - 1) / kTileK) *
+                    ((n2 + kTileC - 1) / kTileC);
+  const long long rows_per_cta =
+      std::min<long long>(std::max(1, kThreads / tiles), rows);
   const long long ctas = (rows + rows_per_cta - 1) / rows_per_cta;
-  if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  const int smem = (int)(rows_per_cta * n * (long long)sizeof(float2));
+  const long long smem = rows_per_cta *
+                         std::max(n1 * (n2 + 1), n2 * (n1 + 1)) *
+                         (long long)sizeof(float2);
+  if (ctas > INT_MAX || smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = four_step_kernel<KARATSUBA, PERMUTED>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)ctas, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)ctas, kThreads, (size_t)smem, stream>>>(
       xr, xi, w1, tw, w2, yr, yi, rows, n1, n2, (int)rows_per_cta);
   return cudaGetLastError();
 }

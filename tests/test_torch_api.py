@@ -1,4 +1,4 @@
-"""The slice as a whole: the port's planned N-D FFT front-end
+"""The port end to end: its planned N-D FFT front-end
 (repro_torch.core.api) against the reference's (repro.core.api, mesh=None,
 kernel backend in interpret mode) and numpy, on the CPU."""
 

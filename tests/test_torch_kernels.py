@@ -3,8 +3,8 @@ mode on the CPU, as tests/test_kernels.py runs them).
 
 On the CPU each op runs its plain PyTorch version, which is what these
 tests hold against the reference; the CUDA kernels themselves are held
-against the same plain versions on the card by the ``gpu``-marked tests
-below and by chip_smoke.py.
+against the same plain versions on the card by tests/test_torch_gpu.py and
+chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -97,45 +97,3 @@ def test_other_devices_and_bad_shapes_raise():
         fft_four_step(tx, (8, 4))
     with pytest.raises(ValueError):
         transpose(torch.zeros(5))
-
-
-# ---------------------------------------------------------------------------
-# on the card: the CUDA kernels against their plain versions
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the GPU machine)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("factors", [(8, 8), (16, 32), (128, 128), (8, 128),
-                                     (128, 8), (25, 40), (7, 3)])
-@pytest.mark.parametrize("karatsuba", [False, True])
-@pytest.mark.parametrize("permuted", [False, True])
-def test_four_step_kernel_matches_plain_on_card(cuda, factors, karatsuba,
-                                                permuted):
-    tx, _ = _pairs((5, factors[0] * factors[1]))
-    x = (tx[0].to(cuda), tx[1].to(cuda))
-    before = kernels.launch_counts()["four_step_fft"]
-    k = fft_four_step(x, factors, karatsuba=karatsuba, permuted=permuted)
-    r = fft_four_step_ref(x, factors, karatsuba=karatsuba, permuted=permuted)
-    assert kernels.launch_counts()["four_step_fft"] == before + 1
-    scale = r[0].abs().max().item() + 1e-6
-    for a, b in zip(k, r):
-        assert (a - b).abs().max().item() <= 1e-4 * scale
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32,
-                                   torch.int32, torch.float64])
-@pytest.mark.parametrize("shape", [(3, 40, 56), (96, 160), (1, 1), (70000, 3, 2)])
-def test_transpose_kernel_matches_plain_on_card(cuda, dtype, shape):
-    x = torch.arange(np.prod(shape), device=cuda).reshape(shape).to(dtype)
-    before = kernels.launch_counts()["batched_transpose"]
-    assert torch.equal(transpose(x), transpose_ref(x))
-    assert kernels.launch_counts()["batched_transpose"] == before + 1
