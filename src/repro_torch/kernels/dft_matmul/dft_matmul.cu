@@ -23,7 +23,11 @@
 // contraction loads 12 complex values for 32 complex multiply-adds, and the
 // shared-memory rows are padded by one element so that the strided reads of
 // the second contraction fall in different banks. All threads hold their
-// tile at once, so the in-place writes wait for one barrier. Karatsuba keeps
+// tile at once, so the in-place writes wait for one barrier. A CTA has 512
+// threads when a row needs more than 256 tiles (the 128 x 128 row) and 256
+// otherwise, so that two CTAs share an SM and one's copies overlap the
+// other's arithmetic; the 512-thread CTA, alone on its SM, unrolls its
+// contraction loops by 4 to keep more loads in flight. Karatsuba keeps
 // the three real sums (ar*wr, ai*wi, (ar+ai)*(wr+wi)) apart exactly as the
 // reference's three matmuls do.
 
@@ -34,6 +38,7 @@
 namespace {
 
 constexpr int kThreads = 512;   // threads per CTA; one tile each
+constexpr int kSmallThreads = 256;  // ... when a row has at most 256 tiles
 constexpr int kTileK = 4;       // consecutive k1 per thread
 constexpr int kTileC = 8;       // columns (c, then k2) per thread, strided
 constexpr int kMaxFactor = 128;
@@ -86,14 +91,15 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 }
 
 // w1: (n1, n1), tw: (n1, n2), w2: (n2, n2), all complex interleaved (float2).
-template <bool KARATSUBA, bool PERMUTED>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int THREADS, bool KARATSUBA, bool PERMUTED>
+__global__ void __launch_bounds__(THREADS, kThreads / THREADS)
 four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  const float2* __restrict__ w1, const float2* __restrict__ tw,
                  const float2* __restrict__ w2, float* __restrict__ yr,
                  float* __restrict__ yi, long long rows, int n1, int n2,
                  int rows_per_cta) {
   extern __shared__ float2 sa[];
+  constexpr int kUnroll = THREADS == kThreads ? 4 : 1;
   const int n = n1 * n2;
   const int ld = n2 + 1;          // row stride of A, B' and (permuted) C
   const int ldo = n1 + 1;         // row stride of C in output order
@@ -104,7 +110,7 @@ four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long base = row0 * n;
 
   // stage 0: the CTA's rows into shared memory, A[r][j][c]
-  for (int e = threadIdx.x; e < nrows * n; e += kThreads) {
+  for (int e = threadIdx.x; e < nrows * n; e += THREADS) {
     const int r = e / n, i = e - r * n, j = i / n2, c = i - j * n2;
     sa[(r * n1 + j) * ld + c] = make_float2(__ldg(xr + base + e),
                                             __ldg(xi + base + e));
@@ -128,7 +134,7 @@ four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   Acc<KARATSUBA> acc;
   acc.zero();
   if (active) {
-#pragma unroll 2
+#pragma unroll kUnroll
     for (int j = 0; j < n1; ++j) {
       float2 a[kTileC], w[kTileK];
 #pragma unroll
@@ -159,7 +165,7 @@ four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   // stage 3: DFT_n2 along the rows of B'
   acc.zero();
   if (active) {
-#pragma unroll 2
+#pragma unroll kUnroll
     for (int c = 0; c < n2; ++c) {
       float2 b[kTileK], w[kTileC];
 #pragma unroll
@@ -192,7 +198,7 @@ four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
 
   // stage 5: the CTA's rows out, coalesced
-  for (int e = threadIdx.x; e < nrows * n; e += kThreads) {
+  for (int e = threadIdx.x; e < nrows * n; e += THREADS) {
     const int rr = e / n, i = e - rr * n;
     float2 v;
     if (PERMUTED) {
@@ -213,18 +219,21 @@ cudaError_t launch(const float* xr, const float* xi, const float2* w1,
                    long long rows, int n1, int n2, cudaStream_t stream) {
   const int tiles = ((n1 + kTileK - 1) / kTileK) *
                     ((n2 + kTileC - 1) / kTileC);
+  const int threads = tiles > kSmallThreads ? kThreads : kSmallThreads;
   const long long rows_per_cta =
-      std::min<long long>(std::max(1, kThreads / tiles), rows);
+      std::min<long long>(std::max(1, threads / tiles), rows);
   const long long ctas = (rows + rows_per_cta - 1) / rows_per_cta;
   const long long smem = rows_per_cta *
                          std::max(n1 * (n2 + 1), n2 * (n1 + 1)) *
                          (long long)sizeof(float2);
   if (ctas > INT_MAX || smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = four_step_kernel<KARATSUBA, PERMUTED>;
+  auto kernel = threads == kThreads
+                    ? four_step_kernel<kThreads, KARATSUBA, PERMUTED>
+                    : four_step_kernel<kSmallThreads, KARATSUBA, PERMUTED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)ctas, kThreads, (size_t)smem, stream>>>(
+  kernel<<<(unsigned)ctas, threads, (size_t)smem, stream>>>(
       xr, xi, w1, tw, w2, yr, yi, rows, n1, n2, (int)rows_per_cta);
   return cudaGetLastError();
 }
