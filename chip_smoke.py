@@ -9,8 +9,10 @@ run from the root of a checkout. Phases, each of which raises on failure:
    port from the checkout's sources, turn TF32 off, and measure the
    constants of the H100 hardware profile (repro_torch.calibrate);
 2. hold each kernel against its plain PyTorch version on the card: the
-   four-step FFT over the reference's kernel sweep, at atol = 1e-4*scale,
-   and the tiled transpose over several dtypes and shapes, exactly;
+   four-step FFT over the reference's kernel sweep and the main path's
+   shapes, at atol = 1e-4*scale, and the tiled transpose over several
+   dtypes and shapes and every block the main path's moves give it,
+   exactly;
 3. run the main path at real size through the public entry points with the
    kernel backend (Planner(backends=("hopper",))): rfftn of a 16384^2 real
    array and irfftn back, fftn of a 512^3 complex pair and ifftn back,
@@ -42,6 +44,9 @@ FP32_PEAK = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores (publish
 HBM_PEAK = 3.35e12   # H100 SXM HBM3 bytes/s (published)
 FOUR_STEP_SWEEP = [(8, 8), (16, 16), (16, 32), (32, 64), (128, 128), (8, 128),
                    (128, 8), (25, 40), (125, 8), (7, 3), (4, 9), (128, 1)]
+# the arrays whose axes the main path moves: the rfftn 16384^2 spectrum
+# before its column pass, and the fftn 512^3 cube
+MAIN_SPECTRA = ((16384, 8193), (512, 512, 512))
 
 
 def check(cond: bool, what: str) -> None:
@@ -65,9 +70,34 @@ def four_step_error(x, factors, **modes):
     return err, scale
 
 
+def main_move_blocks() -> list:
+    """Every (B, n, M) block the main path's moves hand the transpose: each
+    axis but the last of MAIN_SPECTRA, moved last and moved back."""
+    from repro_torch.core.dfft import move_blocks
+    out = []
+    for shape in MAIN_SPECTRA:
+        for axis in range(len(shape) - 1):
+            for block in move_blocks(shape, axis):
+                if block not in out:
+                    out.append(block)
+    return out
+
+
+def transpose_error(x) -> float:
+    """max |kernel - plain| of one transpose on the card; raises unless the
+    two are equal."""
+    from repro_torch.kernels.transpose import transpose, transpose_ref
+    k, r = transpose(x), transpose_ref(x)
+    torch.cuda.synchronize()
+    check(k.shape == r.shape, f"batched_transpose {tuple(x.shape)} shape")
+    err = (k.double() - r.double()).abs().max().item()
+    check(err == 0.0 and torch.equal(k, r), f"batched_transpose "
+          f"{tuple(x.shape)} {x.dtype} differs from plain by {err}")
+    return err
+
+
 def phase_kernels(gen, main_shapes) -> dict:
     """Every kernel against its plain version; returns the max errors."""
-    from repro_torch.kernels.transpose import transpose, transpose_ref
     worst = 0.0           # max err / scale over the sweep (limit 1e-4)
     cases = [((b, f[0] * f[1]), f, {}) for f in FOUR_STEP_SWEEP
              for b in (1, 5, 16)]
@@ -96,38 +126,27 @@ def phase_kernels(gen, main_shapes) -> dict:
             else:
                 x = torch.randint(-100, 100, shape, device="cuda",
                                   generator=gen, dtype=dtype)
-            k, r = transpose(x), transpose_ref(x)
-            torch.cuda.synchronize()
-            check(k.shape == r.shape and torch.equal(k, r),
-                  f"batched_transpose {shape} {dtype} differs from plain")
+            transpose_error(x)
             transposed += 1
+            del x
+    moves = {}
+    for block in main_move_blocks():
+        moves[str(block)] = transpose_error(randn(block, gen))
     print(f"checked four_step_fft on {len(cases)} cases (worst err/scale "
           f"{worst:.3e}, limit 1e-4) and batched_transpose on {transposed} "
-          "dtype x shape cases (exact)")
+          f"dtype x shape cases and the main path's f32 blocks {list(moves)} "
+          "(exact)")
     return {"four_step_fft": main_err, "four_step_worst_rel": worst,
-            "batched_transpose": 0.0}
+            "batched_transpose": moves}
 
 
-def two_factor_hopper(planner, n: int) -> None:
-    """Make planner.plan(n, "c2c") a two-factor hopper plan, the only kind
-    that reaches the kernel, pre-filling the wisdom store if the estimate
-    chose a split the kernel does not take."""
-    from repro_torch.core import algo
-    from repro_torch.core.plan import Plan
+def check_two_factor_hopper(planner, n: int) -> None:
+    """planner.plan(n, "c2c") must be a two-factor hopper plan, the only
+    kind that reaches the kernel."""
     p = planner.plan(n, "c2c")
-    if not (p.backend == "hopper" and len(p.factors) == 2):
-        fac = algo.default_factorization(n)
-        check(len(fac) == 2, f"no two-factor split of {n}")
-        est = planner._estimate_seconds(Plan(n, "c2c", fac, "hopper"), 1)
-        planner.wisdom.put(planner.wisdom_key(n, "c2c"), {
-            "factors": list(fac), "backend": "hopper", "est": est,
-            "measured": -1.0})
-        print(f"wisdom: the H100 estimate chose {p.backend} {p.factors} for "
-              f"c2c n={n}; pre-filled the two-factor hopper verdict {fac}")
-        p = planner.plan(n, "c2c")
     check(p.backend == "hopper" and len(p.factors) == 2,
           f"c2c n={n} plan {p} does not reach the four-step kernel")
-    print(f"plan c2c n={n}: {p.backend} {p.factors}")
+    print(f"plan c2c n={n}: {p.backend} {p.factors} (estimate, no wisdom)")
 
 
 def max_err(pair, ref) -> float:
@@ -189,6 +208,13 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
     from repro_torch.calibrate import time_ms
     from repro_torch.kernels.dft_matmul import fft_four_step, fft_four_step_ref
     from repro_torch.kernels.transpose import transpose, transpose_ref
+    def bound(ops, nbytes):
+        """(ms, what bounds it): the larger of operations over the FP32 peak
+        and bytes over the HBM peak."""
+        t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_PEAK
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops > t_bytes else "bytes")
+
     zc = torch.complex(z[0], z[1])
     rows = [("rfftn 16384^2", lambda p: repro_torch.rfftn(x, planner=p),
              lambda: torch.fft.rfftn(x)),
@@ -210,26 +236,32 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
         ms = time_ms(lambda: fft_four_step(xs, f))
         plain = time_ms(lambda: fft_four_step_ref(xs, f))
         lib = time_ms(lambda: torch.fft.fft(xc))
-        flops, nbytes = 8.0 * b * n * (f[0] + f[1]), 16.0 * b * n
-        bound = max(flops / FP32_PEAK, nbytes / HBM_PEAK) * 1e3
+        # the function is a length-n DFT of each row: 5 n log2(n) float
+        # operations and one complex f32 read and write per point; the
+        # four-step's own 8 n (n1 + n2) operations are reported as its rate
+        bound_ms, by = bound(5.0 * b * n * math.log2(n), 16.0 * b * n)
+        four_step_flops = 8.0 * b * n * (f[0] + f[1])
         print(f"time four_step_fft {name} {shape} {f}: kernel {ms:.3f} ms, "
               f"plain {plain:.3f} ms, torch.fft.fft {lib:.3f} ms, bound "
-              f"{bound:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s) "
-              f"[{label}]")
+              f"{bound_ms:.3f} ms ({by}); four-step rate "
+              f"{four_step_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s [{label}]")
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bound, bound_by="operations"
-                         if flops / FP32_PEAK > nbytes / HBM_PEAK else "bytes")
+                         bound_ms=bound_ms, bound_by=by)
         del xs, xc
-    xt = randn((1, 16384, 8193), gen)
-    ms = time_ms(lambda: transpose(xt))
-    plain = time_ms(lambda: transpose_ref(xt))
-    bound = 2.0 * xt.numel() * xt.element_size() / HBM_PEAK * 1e3
-    print(f"time batched_transpose (1, 16384, 8193) f32: kernel {ms:.3f} ms, "
-          f"plain = library (x.transpose(-1,-2).contiguous()) {plain:.3f} ms, "
-          f"bound {bound:.3f} ms "
-          f"({2 * xt.numel() * 4 / (ms * 1e-3) / 1e12:.2f} TB/s) [{label}]")
-    out["transpose"] = dict(ms=ms, plain_ms=plain, library_ms=plain,
-                            bound_ms=bound, bound_by="bytes")
+    for block in main_move_blocks():
+        xt = randn(block, gen)
+        ms = time_ms(lambda: transpose(xt))
+        plain = time_ms(lambda: transpose_ref(xt))
+        nbytes = 2.0 * xt.numel() * xt.element_size()
+        bound_ms, by = bound(0.0, nbytes)
+        print(f"time batched_transpose {block} f32: kernel {ms:.3f} ms, "
+              f"plain = library (x.transpose(-1,-2).contiguous()) "
+              f"{plain:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({nbytes / (ms * 1e-3) / 1e12:.2f} TB/s) [{label}]")
+        if block == (1,) + MAIN_SPECTRA[0]:     # the rfftn column pass's move
+            out["transpose"] = dict(ms=ms, plain_ms=plain, library_ms=plain,
+                                    bound_ms=bound_ms, bound_by=by)
+        del xt
     return out
 
 
@@ -294,7 +326,7 @@ def main() -> int:
 
     planner = Planner(backends=("hopper",))
     for n in (16384, 512):
-        two_factor_hopper(planner, n)
+        check_two_factor_hopper(planner, n)
     main_shapes = {"rfftn column pass": ((8193, 16384),
                                          planner.plan(16384, "c2c").factors),
                    "fftn 512^3 pass": ((512 * 512, 512),
@@ -327,7 +359,8 @@ def main() -> int:
              source="src/repro_torch/kernels/transpose/transpose.cu",
              replaces="src/repro/kernels/transpose/transpose.py:27",
              launches=launches["batched_transpose"],
-             max_abs_err=errs["batched_transpose"], **times["transpose"]),
+             max_abs_err=max(errs["batched_transpose"].values()),
+             **times["transpose"]),
     ]}
     for k in table["kernels"]:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")),

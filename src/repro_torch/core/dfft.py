@@ -52,19 +52,27 @@ def _crop_axis(c: Complex, axis: int, n: int) -> Complex:
     return c[0].narrow(axis, 0, n), c[1].narrow(axis, 0, n)
 
 
+def move_blocks(shape, axis: int):
+    """The blocks the transpose is handed to move ``axis`` of a contiguous
+    ``shape`` last, ``(B, n, M)``, and to move it back, ``(B, M, n)``."""
+    b, n, m = math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:])
+    return (b, n, m), (b, m, n)
+
+
 def _axis_last(x: torch.Tensor, axis: int) -> torch.Tensor:
     """``moveaxis(x, axis, -1)`` through the batched transpose."""
     shape = tuple(x.shape)
-    pre, n, post = shape[:axis], shape[axis], shape[axis + 1:]
-    y = transpose(x.contiguous().view(math.prod(pre), n, math.prod(post)))
-    return y.view(pre + post + (n,))
+    block, _ = move_blocks(shape, axis)
+    y = transpose(x.contiguous().view(block))
+    return y.view(shape[:axis] + shape[axis + 1:] + (shape[axis],))
 
 
 def _axis_back(y: torch.Tensor, axis: int) -> torch.Tensor:
     """Inverse of :func:`_axis_last`: ``moveaxis(y, -1, axis)``."""
     shape = tuple(y.shape)
     pre, post, n = shape[:axis], shape[axis:-1], shape[-1]
-    x = transpose(y.contiguous().view(math.prod(pre), math.prod(post), n))
+    _, block = move_blocks(pre + (n,) + post, axis)
+    x = transpose(y.contiguous().view(block))
     return x.view(pre + (n,) + post)
 
 

@@ -14,7 +14,9 @@ Port of ``repro.core.plan``:
 Backends: ``torch`` / ``torch_karatsuba`` run the four-step algorithm on
 ``torch.matmul``; ``hopper`` / ``hopper_karatsuba`` run the hand-written
 four-step CUDA kernel for two-factor c2c plans (the r2c/c2r pack glue and
-longer factorizations take the matmul path, as in the reference);
+longer factorizations take the matmul path, as in the reference), and
+their c2c candidates are the two-factor splits wherever ``n`` has one, so
+the estimate cannot price the kernel out of its own backend;
 ``torch_native`` is ``torch.fft``.
 """
 
@@ -197,13 +199,20 @@ class Planner:
 
     def _candidates(self, n: int, kind: str, permuted: bool):
         n_eff = n // 2 if kind in ("r2c", "c2r") else n
+        facs = _candidate_factorizations(n_eff, self.max_base)
+        two = [f for f in facs if len(f) == 2]
         for backend in self.backends:
             if backend == "torch_native":
                 yield Plan(n, kind, (), backend)
                 continue
-            for fac in _candidate_factorizations(n_eff, self.max_base):
-                if permuted and len(fac) != 2:
-                    continue
+            mine = facs
+            if permuted:
+                mine = two
+            elif backend.startswith("hopper") and kind == "c2c" and two:
+                # the kernel takes only two-factor c2c splits (see execute):
+                # a cheaper-looking other split would leave it unused
+                mine = two
+            for fac in mine:
                 yield Plan(n, kind, fac, backend, permuted=permuted)
 
     def plan(self, n: int, kind: str = "c2c", batch: int = 1,

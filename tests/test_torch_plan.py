@@ -36,6 +36,19 @@ def test_estimate_picks_the_reference_factors(n, kind, backend):
     assert ours.est_cost == pytest.approx(theirs.est_cost, rel=1e-12)
 
 
+@pytest.mark.parametrize("n,factors", [(16384, (128, 128)), (512, (32, 16)),
+                                       (64, (8, 8)), (7, (7, 1)),
+                                       (32768, (32, 32, 32))])
+def test_hopper_c2c_plans_take_the_kernels_splits(n, factors):
+    """Under the H100 profile the estimate prefers three-factor matmul
+    splits; the kernel backend still plans the kernel's two-factor split
+    wherever n has one."""
+    p = plan.Planner(backends=("hopper",)).plan(n, "c2c")
+    assert (p.backend, p.factors) == ("hopper", factors)
+    if n == 16384:
+        assert len(plan.Planner(backends=("torch",)).plan(n).factors) == 3
+
+
 def test_wisdom_round_trip(tmp_path):
     path = str(tmp_path / "wisdom.json")
     p = plan.Planner(backends=("torch",), wisdom_path=path)
