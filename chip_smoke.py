@@ -6,22 +6,38 @@
 run from the root of a checkout. Phases, each of which raises on failure:
 
 1. print the card's name and power limit, build every CUDA kernel of the
-   port from the checkout's sources, turn TF32 off, and measure the
-   constants of the H100 hardware profile (repro_torch.calibrate);
+   port from the checkout's sources (all in parallel), turn TF32 off, and
+   measure the constants of the H100 hardware profile
+   (repro_torch.calibrate);
 2. hold each kernel against its plain PyTorch version on the card: the
    four-step FFT over the reference's kernel sweep and the main path's
-   shapes, at atol = 1e-4*scale, and the tiled transpose over several
-   dtypes and shapes and every block the main path's moves give it,
-   exactly;
-3. run the main path at real size through the public entry points with the
-   kernel backend (Planner(backends=("hopper",))): rfftn of a 16384^2 real
-   array and irfftn back, fftn of a 512^3 complex pair and ifftn back,
+   shapes, at atol = 1e-4*scale; the tiled transpose over several dtypes
+   and shapes and every block the main path's moves give it, exactly; the
+   complex multiply over a block sweep, a suffix broadcast and the FFT
+   convolution's shape, at atol = 1e-5 (the reference's); the four-step
+   (permuted, at 1e-4*scale) and the transpose (exactly) at the blocks
+   fft_conv hands them on the mixer's path; the fused FFT convolution over
+   a factor x block_rows sweep and its own path's shape, at
+   atol = 2e-4*max|plain|;
+3. run the N-D FFT path at real size through the public entry points with
+   the kernel backend (Planner(backends=("hopper",))): rfftn of a 16384^2
+   real array and irfftn back, fftn of a 512^3 complex pair and ifftn back,
    held against float64 torch.fft at atol = 2e-4*max|ref|, with the launch
-   counts of both kernels read around this phase alone;
-4. time the transforms (hopper planner, torch planner, torch.fft) and each
-   kernel alone at its main-path shape, as medians of 10 CUDA-event timed
-   runs after warm-up, then trace one call of each transform with
-   torch.profiler (device time by kernel, device busy share).
+   counts of the kernels read around this phase alone;
+4. time the transforms (hopper planner, torch planner, torch.fft) and the
+   four-step and transpose kernels alone at their main-path shapes, as
+   medians of 10 CUDA-event timed runs after warm-up, then trace one call
+   of each transform with torch.profiler (device time by kernel, device
+   busy share);
+5. free those arrays and run the FFT-convolution paths at real size:
+   FFTConvMixer at olmo-1b's width (d_model 2048, rank 16) on a
+   (4, 8192, 2048) input through the hopper planner, held against a
+   float64 torch.fft convolution and float64 gate and projections, and the
+   fused kernel's own entry causally (2x padding) on 8192 rows of 8192,
+   held against float64 torch.fft, each with the launch counts of its run;
+6. time the mixer and fft_conv (hopper planner, torch planner, a torch.fft
+   composition) and the complex-multiply and fused kernels alone at their
+   path shapes, then trace one mixer call with torch.profiler.
 
 The last two lines are the kernel table as one JSON object, then the card
 label, then {"ok": true, "device": {...}}. It needs one GPU and exits
@@ -47,11 +63,33 @@ FOUR_STEP_SWEEP = [(8, 8), (16, 16), (16, 32), (32, 64), (128, 128), (8, 128),
 # the arrays whose axes the main path moves: the rfftn 16384^2 spectrum
 # before its column pass, and the fftn 512^3 cube
 MAIN_SPECTRA = ((16384, 8193), (512, 512, 512))
+# complex_multiply (a, b) shapes: same shape, the reference's broadcast, a
+# suffix broadcast, an odd one, a small b repeated many times; and elements
+# per CTA, some not a multiple of 4
+CMUL_CASES = [((3, 40, 56), (3, 40, 56)), ((4, 300), (300,)),
+              ((2, 3, 64), (3, 64)), ((5, 1001), (1001,)),
+              ((4096, 64), (64,))]
+CMUL_BLOCKS = (1, 3, 256, 1024, 4096)
+FUSED_FACTORS = [(8, 8), (16, 32), (64, 64), (128, 8), (128, 128)]
+FUSED_BLOCK_ROWS = (1, 4, 8)
+# the FFT-conv mixer at olmo-1b's width (src/repro/configs/olmo_1b.py:
+# d_model 2048; fftconv_rank 16 is the ArchConfig default) on 4 x 8192
+# tokens: nf = 16384, factors (128, 128)
+MIXER_D, MIXER_RANK, MIXER_B, MIXER_S = 2048, 16, 4, 8192
+CONV_ROWS, CONV_L = 8192, 8192     # the fused kernel's causal path
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def bound(ops, nbytes):
+    """(ms, what bounds it): the larger of operations over the FP32 peak and
+    bytes over the HBM peak."""
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_PEAK
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
 
 
 def randn(shape, gen, dtype=torch.float32):
@@ -171,8 +209,8 @@ def phase_main_path(planner, x, z) -> dict:
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
+    for name in ("four_step_fft", "batched_transpose"):
+        check(launches[name] > 0, f"the main path never launched {name}")
 
     ref = torch.fft.rfftn(x.double())
     tol = 2e-4 * ref.abs().max().item()
@@ -208,13 +246,6 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
     from repro_torch.calibrate import time_ms
     from repro_torch.kernels.dft_matmul import fft_four_step, fft_four_step_ref
     from repro_torch.kernels.transpose import transpose, transpose_ref
-    def bound(ops, nbytes):
-        """(ms, what bounds it): the larger of operations over the FP32 peak
-        and bytes over the HBM peak."""
-        t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_PEAK
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops > t_bytes else "bytes")
-
     zc = torch.complex(z[0], z[1])
     rows = [("rfftn 16384^2", lambda p: repro_torch.rfftn(x, planner=p),
              lambda: torch.fft.rfftn(x)),
@@ -265,15 +296,12 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
     return out
 
 
-def phase_profile(label, planner, x, z) -> None:
-    """One traced call of each transform: device time by kernel, and the
+def phase_profile(label, calls) -> None:
+    """One traced run of each (name, call): device time by kernel, and the
     device's busy share of the call's wall time."""
-    import repro_torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, run in (("rfftn 16384^2", lambda: repro_torch.rfftn(
-            x, planner=planner)), ("fftn 512^3", lambda: repro_torch.fftn(
-                z, planner=planner))):
+    for name, run in calls:
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -286,11 +314,304 @@ def phase_profile(label, planner, x, z) -> None:
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        print(f"profile {name} hopper: wall {wall_ms:.3f} ms, device busy "
+        print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
               f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) [{label}]")
         for e in rows[:8]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
                   f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# the FFT convolution: complex multiply, fused kernel, mixer
+# ---------------------------------------------------------------------------
+
+
+def cmul_error(a, b, block: int = 1024) -> float:
+    """max |kernel - plain| of one complex multiply on the card."""
+    from repro_torch.kernels.twiddle import (complex_multiply,
+                                             complex_multiply_ref)
+    k = complex_multiply(a, b, block=block)
+    r = complex_multiply_ref(a, b)
+    torch.cuda.synchronize()
+    check(k[0].shape == r[0].shape == a[0].shape,
+          f"complex_multiply {tuple(a[0].shape)} shape")
+    return max((k[0] - r[0]).abs().max().item(),
+               (k[1] - r[1]).abs().max().item())
+
+
+def fused_error(x, h, factors, block_rows: int = 8):
+    """(max |kernel - plain|, max |plain|) of one fused FFT convolution on
+    the card; the plain version runs the kernel's schedule on torch.matmul."""
+    from repro_torch.kernels.fftconv import fftconv_fused
+    from repro_torch.kernels.fftconv.ref import (fftconv_fused_plain,
+                                                 filter_spectrum_plain)
+    k = fftconv_fused(x, h, factors, block_rows=block_rows)
+    r = fftconv_fused_plain(x, filter_spectrum_plain(h, factors), factors)
+    torch.cuda.synchronize()
+    check(k.shape == r.shape == x.shape, f"fftconv_fused {factors} shape")
+    return (k - r).abs().max().item(), r.abs().max().item()
+
+
+def decaying_filter(n: int, gen) -> torch.Tensor:
+    return randn((n,), gen) * torch.exp(
+        -torch.arange(n, device="cuda", dtype=torch.float32) / 64)
+
+
+def mixer_blocks(nf: int):
+    """What fft_conv hands the kernels on the mixer's path: the four-step
+    (permuted) gets the padded activations (B, D, nf) and filters (D, nf);
+    the transpose gets two views, v (B, L, D), the first half of
+    x @ w_in (B, L, 2D), and the cropped output (B, D, L) of (B, D, nf),
+    given here as (array shape, cropped shape)."""
+    return (((MIXER_B, MIXER_D, nf), (MIXER_D, nf)),
+            (((MIXER_B, MIXER_S, 2 * MIXER_D), (MIXER_B, MIXER_S, MIXER_D)),
+             ((MIXER_B, MIXER_D, nf), (MIXER_B, MIXER_D, MIXER_S))))
+
+
+def phase_conv_kernels(gen, factors, errs) -> dict:
+    """The complex-multiply and fused kernels against their plain versions,
+    and the four-step and transpose at the mixer path's blocks (added to
+    ``errs``' entries for them); returns the max errors at the paths'
+    shapes."""
+    nf = factors[0] * factors[1]
+    four_step_blocks, move_sources = mixer_blocks(nf)
+    for shape in four_step_blocks:
+        x = (randn(shape, gen), randn(shape, gen))
+        err, scale = four_step_error(x, factors, permuted=True)
+        check(err <= 1e-4 * scale, f"four_step_fft {shape} {factors} "
+              f"permuted (fft_conv): err {err} > 1e-4 * {scale}")
+        errs["four_step_fft"][f"fft_conv {shape} permuted"] = err
+        errs["four_step_worst_rel"] = max(errs["four_step_worst_rel"],
+                                          err / scale)
+        del x
+    for full, crop in move_sources:
+        x = randn(full, gen)[tuple(slice(0, c) for c in crop)]
+        errs["batched_transpose"][f"fft_conv {crop} view of {full}"] = \
+            transpose_error(x)
+        del x
+    print(f"checked four_step_fft permuted at fft_conv's {four_step_blocks} "
+          f"{factors} and batched_transpose (exact) at its moves of "
+          f"{[crop for _, crop in move_sources]} (views)")
+    cmul_cases = 0
+    for a_shape, b_shape in CMUL_CASES:
+        a = (randn(a_shape, gen), randn(a_shape, gen))
+        b = (randn(b_shape, gen), randn(b_shape, gen))
+        for block in CMUL_BLOCKS:
+            err = cmul_error(a, b, block)
+            check(err <= 1e-5, f"complex_multiply {a_shape} x {b_shape} "
+                  f"block {block}: err {err} > 1e-5")
+            cmul_cases += 1
+    # views 4 bytes past a 16-byte boundary take the kernel's scalar path
+    bufs = [randn((4 * 1024 + 1,), gen) for _ in range(4)]
+    a = (bufs[0][1:].view(4, 1024), bufs[1][1:].view(4, 1024))
+    b = (bufs[2][1:1025], bufs[3][1:1025])
+    unaligned = cmul_error(a, b)
+    check(unaligned <= 1e-5, f"complex_multiply unaligned: err {unaligned}")
+    a = tuple(randn((MIXER_B, MIXER_D, nf), gen) for _ in "ri")
+    b = tuple(randn((MIXER_D, nf), gen) for _ in "ri")
+    cmul_path = cmul_error(a, b)
+    check(cmul_path <= 1e-5, f"complex_multiply at the path's shape: err "
+          f"{cmul_path} > 1e-5")
+    del a, b
+
+    worst = 0.0
+    for f in FUSED_FACTORS:
+        n = f[0] * f[1]
+        x, h = randn((6, n), gen), decaying_filter(n, gen)
+        for block_rows in FUSED_BLOCK_ROWS:
+            err, scale = fused_error(x, h, f, block_rows)
+            check(err <= 2e-4 * scale, f"fftconv_fused {f} block_rows "
+                  f"{block_rows}: err {err} > 2e-4 * {scale}")
+            worst = max(worst, err / scale)
+    x, h = randn((CONV_ROWS, nf), gen), decaying_filter(nf, gen)
+    fused_path, scale = fused_error(x, h, factors)
+    check(fused_path <= 2e-4 * scale, f"fftconv_fused ({CONV_ROWS}, {nf}): "
+          f"err {fused_path} > 2e-4 * {scale}")
+    del x, h
+    print(f"checked complex_multiply on {cmul_cases} shape x block cases, "
+          f"an unaligned case (err {unaligned:.3e}) and ({MIXER_B}, "
+          f"{MIXER_D}, {nf}) x ({MIXER_D}, {nf}) (err {cmul_path:.3e}, "
+          f"limit 1e-5); fftconv_fused on {FUSED_FACTORS} x block_rows "
+          f"{FUSED_BLOCK_ROWS} (worst err/scale {worst:.3e}, limit 2e-4) and "
+          f"({CONV_ROWS}, {nf}) {factors} (err {fused_path:.3e}, scale "
+          f"{scale:.3e})")
+    return {"complex_multiply": cmul_path, "fftconv_fused": fused_path,
+            "fftconv_fused_worst_rel": worst}
+
+
+def causal_conv(u, k) -> torch.Tensor:
+    """torch.fft causal convolution of u (B, L, D) with k (D, L): rfft,
+    multiply, irfft, in the inputs' precision."""
+    length = u.shape[1]
+    uf = torch.fft.rfft(u, n=2 * length, dim=1)
+    kf = torch.fft.rfft(k, n=2 * length, dim=1).T
+    return torch.fft.irfft(uf * kf, n=2 * length, dim=1)[:, :length]
+
+
+def mixer_parts(mixer, x):
+    """v, gate and the filters of one mixer call, as the mixer makes them."""
+    from repro_torch.core.fftconv import materialize_filter
+    v, gate = (x @ mixer.w_in).chunk(2, dim=-1)
+    return v, gate, materialize_filter(mixer.filt, x.shape[1])
+
+
+def phase_mixer(planner, gen):
+    """FFTConvMixer at olmo-1b's width through the hopper planner, checked
+    against float64; returns (launch counts of the call, mixer, input)."""
+    from repro_torch import kernels
+    from repro_torch.core.fftconv import fft_conv, next_fft_len
+    from repro_torch.models import FFTConvMixer
+    nf = next_fft_len(2 * MIXER_S)
+    p = planner.plan(nf, "c2c", permuted=True)
+    check(p.backend == "hopper" and p.factors == (128, 128),
+          f"fft_conv's plan for nf={nf} is {p}, not hopper (128, 128)")
+    print(f"plan c2c permuted n={nf}: {p.backend} {p.factors} (estimate, "
+          "no wisdom)")
+    mixer = FFTConvMixer(MIXER_D, MIXER_RANK, planner=planner,
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(SEED))
+    x = randn((MIXER_B, MIXER_S, MIXER_D), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    y = mixer(x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"four_step_fft": 2, "batched_transpose": 2,
+            "complex_multiply": 1, "fftconv_fused": 0}
+    check(launches == want, f"mixer launches {launches}, expected {want}")
+    check(y.shape == x.shape and torch.isfinite(y).all().item(),
+          "mixer output shape or non-finite values")
+
+    v, gate, filt = mixer_parts(mixer, x)
+    conv = causal_conv(v.double(), filt.double())
+    conv_ours = fft_conv(v, filt, planner=planner)
+    conv_tol = 2e-4 * conv.abs().max().item()
+    conv_err = (conv_ours.double() - conv).abs().max().item()
+    check(conv_err <= conv_tol, f"fft_conv err {conv_err} > {conv_tol}")
+    del conv_ours
+    ref = ((conv + v.double() * mixer.skip.double())
+           * torch.nn.functional.silu(gate.double())) @ mixer.w_out.double()
+    del conv, v, gate
+    tol = 2e-4 * ref.abs().max().item()
+    err = (y.double() - ref).abs().max().item()
+    check(err <= tol, f"mixer err {err} > {tol}")
+    del ref, y
+    print(f"mixer path: FFTConvMixer({MIXER_D}, {MIXER_RANK}) on "
+          f"{tuple(x.shape)}: err {err:.4e} (tol {tol:.4e}); fft_conv err "
+          f"{conv_err:.4e} (tol {conv_tol:.4e}); launches {launches}; "
+          f"{seconds:.3f} s incl. first call; peak {peak / 2 ** 30:.2f} GiB")
+    return launches, mixer, x
+
+
+def phase_fused_path(gen, mixer, factors) -> dict:
+    """The fused kernel's own entry, causal through 2x padding, on CONV_ROWS
+    rows of CONV_L with one of the mixer's filters; returns its launches."""
+    from repro_torch import kernels
+    from repro_torch.core.fftconv import materialize_filter
+    from repro_torch.kernels.fftconv import fftconv_fused
+    h = materialize_filter(mixer.filt[:1], CONV_L)[0]
+    x = randn((CONV_ROWS, CONV_L), gen)
+    xp = torch.nn.functional.pad(x, (0, CONV_L))
+    hp = torch.nn.functional.pad(h, (0, CONV_L))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = fftconv_fused(xp, hp, factors)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {"four_step_fft": 1, "batched_transpose": 0,
+            "complex_multiply": 0, "fftconv_fused": 1}
+    check(launches == want, f"fftconv_fused launches {launches}, "
+          f"expected {want}")
+    ref = torch.fft.irfft(torch.fft.rfft(x.double(), n=2 * CONV_L)
+                          * torch.fft.rfft(h.double(), n=2 * CONV_L),
+                          n=2 * CONV_L)[:, :CONV_L]
+    tol = 2e-4 * ref.abs().max().item()
+    err = (y[:, :CONV_L].double() - ref).abs().max().item()
+    check(err <= tol and torch.isfinite(y).all().item(),
+          f"causal fftconv_fused err {err} > {tol}")
+    print(f"fused path: fftconv_fused causal on ({CONV_ROWS}, {CONV_L}) "
+          f"padded to {2 * CONV_L}, factors {factors}: err {err:.4e} (tol "
+          f"{tol:.4e}); launches {launches} (the four-step one is the "
+          "filter's spectrum)")
+    return launches
+
+
+def phase_conv_times(label, planners, mixer, x, factors, gen) -> dict:
+    from repro_torch.calibrate import time_ms
+    from repro_torch.core.fftconv import fft_conv
+    from repro_torch.kernels.fftconv import fftconv_fused
+    from repro_torch.kernels.fftconv.ref import (fftconv_fused_plain,
+                                                 filter_spectrum_plain)
+    from repro_torch.kernels.twiddle import (complex_multiply,
+                                             complex_multiply_ref)
+    v, gate, filt = mixer_parts(mixer, x)
+
+    def mixer_lib():
+        vv, gg, ff = mixer_parts(mixer, x)
+        y = causal_conv(vv, ff) + vv * mixer.skip
+        return (y * torch.nn.functional.silu(gg)) @ mixer.w_out
+
+    ms = {}
+    for name, p in planners.items():
+        mixer.planner = p
+        ms[f"mixer {name}"] = time_ms(lambda: mixer(x))
+        ms[f"fft_conv {name}"] = time_ms(lambda p=p: fft_conv(v, filt,
+                                                              planner=p))
+    mixer.planner = planners["hopper"]
+    ms["mixer with torch.fft conv"] = time_ms(mixer_lib)
+    ms["fft_conv torch.fft (rfft, multiply, irfft)"] = time_ms(
+        lambda: causal_conv(v, filt))
+    print("time FFT conv at " + str(tuple(x.shape)) + ": " + ", ".join(
+        f"{k} {t:.3f} ms" for k, t in ms.items()) + f" [{label}]")
+    del v, gate, filt
+
+    out = {}
+    b_, d_, nf = MIXER_B, MIXER_D, factors[0] * factors[1]
+    a = (randn((b_, d_, nf), gen), randn((b_, d_, nf), gen))
+    b = (randn((d_, nf), gen), randn((d_, nf), gen))
+    kt = time_ms(lambda: complex_multiply(a, b))
+    plain = time_ms(lambda: complex_multiply_ref(a, b))
+    ac, bc = torch.complex(*a), torch.complex(*b)
+    lib = time_ms(lambda: ac * bc)
+    # each input read once, the output written once: a, b and o pairs
+    nbytes = 4.0 * (2 * a[0].numel() + 2 * b[0].numel() + 2 * a[0].numel())
+    bound_ms, by = bound(6.0 * a[0].numel(), nbytes)
+    print(f"time complex_multiply {tuple(a[0].shape)} x {tuple(b[0].shape)}: "
+          f"kernel {kt:.3f} ms ({nbytes / (kt * 1e-3) / 1e12:.2f} TB/s), "
+          f"plain {plain:.3f} ms, library (complex64 a * b) {lib:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({by}) [{label}]")
+    out["complex_multiply"] = dict(ms=kt, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bound_ms, bound_by=by)
+    del a, b, ac, bc
+
+    n1, n2 = factors
+    xs, h = randn((CONV_ROWS, nf), gen), decaying_filter(nf, gen)
+    kt = time_ms(lambda: fftconv_fused(xs, h, factors))
+    plain = time_ms(lambda: fftconv_fused_plain(
+        xs, filter_spectrum_plain(h, factors), factors))
+    comp = time_ms(lambda: torch.fft.irfft(
+        torch.fft.rfft(xs) * torch.fft.rfft(h), n=nf))
+    # the function: a length-nf FFT and inverse per row and the product;
+    # the kernel's own four contractions (real input, real output at the
+    # ends) are reported as its rate
+    bound_ms, by = bound((2 * 5.0 * nf * math.log2(nf) + 6.0 * nf)
+                         * CONV_ROWS, 8.0 * CONV_ROWS * nf)
+    kernel_flops = CONV_ROWS * nf * (8.0 * n1 + 16.0 * n2)
+    print(f"time fftconv_fused ({CONV_ROWS}, {nf}) {factors}: kernel "
+          f"{kt:.3f} ms (with the filter spectrum's one-row four-step "
+          f"launch), plain {plain:.3f} ms, torch.fft composition (rfft, "
+          f"multiply, irfft; no single library call) {comp:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({by}); kernel rate "
+          f"{kernel_flops / (kt * 1e-3) / 1e12:.2f} TFLOP/s on its "
+          f"{kernel_flops / 1e9:.1f} GFLOP [{label}]")
+    out["fftconv_fused"] = dict(ms=kt, plain_ms=plain, library_ms=None,
+                                bound_ms=bound_ms, bound_by=by)
+    del xs, h
+    return out
 
 
 def main() -> int:
@@ -299,6 +620,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
     from repro_torch import Planner
     from repro_torch.calibrate import card_label, measure
     from repro_torch.core.plan import H100
@@ -335,17 +657,34 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = phase_kernels(gen, main_shapes)
+    conv_factors = planner.plan(2 * MIXER_S, "c2c", permuted=True).factors
+    errs.update(phase_conv_kernels(gen, conv_factors, errs))
     print("kernels " + json.dumps(errs))
 
-    # phase 3: the main path at real size
+    # phase 3: the N-D FFT path at real size
     x = randn((16384, 16384), gen)
     z = (randn((512,) * 3, gen), randn((512,) * 3, gen))
     launches = phase_main_path(planner, x, z)
 
-    # phase 4: times
+    # phase 4: its times
     planners = {"hopper": planner, "torch": Planner(backends=("torch",))}
     times = phase_times(label, planners, x, z, main_shapes, gen)
-    phase_profile(label, planner, x, z)
+    phase_profile(label, [
+        ("rfftn 16384^2 hopper",
+         lambda: repro_torch.rfftn(x, planner=planner)),
+        ("fftn 512^3 hopper", lambda: repro_torch.fftn(z, planner=planner))])
+    del x, z
+    torch.cuda.empty_cache()
+
+    # phase 5: the FFT-convolution paths at real size, then 6: their times
+    with torch.no_grad():
+        mixer_launches, mixer, xm = phase_mixer(planner, gen)
+        fused_launches = phase_fused_path(gen, mixer, conv_factors)
+        times.update(phase_conv_times(label, planners, mixer, xm,
+                                      conv_factors, gen))
+        phase_profile(label, [(f"FFTConvMixer({MIXER_D}, {MIXER_RANK}) "
+                               f"{tuple(xm.shape)} hopper",
+                               lambda: mixer(xm))])
 
     head = times["rfftn column pass"]
     table = {"kernels": [
@@ -353,7 +692,7 @@ def main() -> int:
              source="src/repro_torch/kernels/dft_matmul/dft_matmul.cu",
              replaces="src/repro/kernels/dft_matmul/dft_matmul.py:76",
              launches=launches["four_step_fft"],
-             max_abs_err=errs["four_step_fft"]["rfftn column pass"],
+             max_abs_err=max(errs["four_step_fft"].values()),
              **head),
         dict(name="batched_transpose", route="cuda",
              source="src/repro_torch/kernels/transpose/transpose.cu",
@@ -361,6 +700,18 @@ def main() -> int:
              launches=launches["batched_transpose"],
              max_abs_err=max(errs["batched_transpose"].values()),
              **times["transpose"]),
+        dict(name="complex_multiply", route="cuda",
+             source="src/repro_torch/kernels/twiddle/twiddle.cu",
+             replaces="src/repro/kernels/twiddle/twiddle.py:23",
+             launches=mixer_launches["complex_multiply"],
+             max_abs_err=errs["complex_multiply"],
+             **times["complex_multiply"]),
+        dict(name="fftconv_fused", route="cuda",
+             source="src/repro_torch/kernels/fftconv/fftconv.cu",
+             replaces="src/repro/kernels/fftconv/fftconv.py:80",
+             launches=fused_launches["fftconv_fused"],
+             max_abs_err=errs["fftconv_fused"],
+             **times["fftconv_fused"]),
     ]}
     for k in table["kernels"]:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")),

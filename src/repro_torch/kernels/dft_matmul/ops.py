@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 import torch
 
 from ...core import algo
+from .._grad import refuse_autograd
 from . import binding
 from .ref import fft_four_step_ref
 
@@ -23,18 +24,18 @@ LAUNCHES = 0
 _TABLES: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
 
 
-def _interleaved(c: algo.Complex) -> torch.Tensor:
+def interleaved(c: algo.Complex) -> torch.Tensor:
     return torch.stack(c, dim=-1).contiguous()      # float2 per entry
 
 
-def _tables(n1: int, n2: int, device: torch.device):
+def tables(n1: int, n2: int, device: torch.device):
     """W1, T, W2 (sign -1) as interleaved complex tensors on ``device``."""
     key = (n1, n2, device)
     if key not in _TABLES:
         _TABLES[key] = (
-            _interleaved(algo.dft_matrix(n1, -1, device)),
-            _interleaved(algo.twiddle_factors(n1, n2, -1, device)),
-            _interleaved(algo.dft_matrix(n2, -1, device)))
+            interleaved(algo.dft_matrix(n1, -1, device)),
+            interleaved(algo.twiddle_factors(n1, n2, -1, device)),
+            interleaved(algo.dft_matrix(n2, -1, device)))
     return _TABLES[key]
 
 
@@ -60,13 +61,14 @@ def fft_four_step(x: algo.Complex, factors: Tuple[int, int], *,
         raise TypeError(f"fft_four_step takes float32, got {xr.dtype}")
     if not (1 <= n1 <= MAX_FACTOR and 1 <= n2 <= MAX_FACTOR):
         raise ValueError(f"factors must lie in 1..{MAX_FACTOR}: {factors}")
+    refuse_autograd("fft_four_step", xr, xi)
     batch = tuple(xr.shape[:-1])
     a = xr.reshape(-1, n).contiguous()
     b = xi.reshape(-1, n).contiguous()
     yr, yi = torch.empty_like(a), torch.empty_like(b)
     rows = a.shape[0]
     if rows:
-        w1, tw, w2 = _tables(n1, n2, xr.device)
+        w1, tw, w2 = tables(n1, n2, xr.device)
         lib = binding.lib()
         with torch.cuda.device(xr.device):
             stream = torch.cuda.current_stream().cuda_stream

@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from .._grad import refuse_autograd
 from . import binding
 from .ref import transpose_ref
 
@@ -31,6 +32,7 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     if x.element_size() not in (1, 2, 4, 8) or x.is_complex():
         raise TypeError(f"transpose moves 1/2/4/8-byte real elements, got "
                         f"{x.dtype}")
+    refuse_autograd("transpose", x)
     *batch, n, m = x.shape
     src = x.contiguous()
     out = torch.empty((*batch, m, n), dtype=x.dtype, device=x.device)

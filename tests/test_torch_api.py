@@ -84,7 +84,9 @@ def test_the_path_runs_the_kernel_ops_in_cpu_mode():
     kernels.reset_launch_counts()
     api.fftn(RNG.standard_normal((16, 32)), planner=_ours(), device="cpu")
     assert kernels.launch_counts() == {"four_step_fft": 0,
-                                       "batched_transpose": 0}
+                                       "batched_transpose": 0,
+                                       "complex_multiply": 0,
+                                       "fftconv_fused": 0}
 
 
 @pytest.mark.parametrize("shape,kind", [((64, 96), "r2c"), ((24, 40, 16), "c2c"),

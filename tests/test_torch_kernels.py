@@ -83,7 +83,9 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     assert torch.equal(transpose(x), transpose_ref(x))
     assert transpose(x).is_contiguous()
     assert kernels.launch_counts() == {"four_step_fft": 0,
-                                       "batched_transpose": 0}
+                                       "batched_transpose": 0,
+                                       "complex_multiply": 0,
+                                       "fftconv_fused": 0}
 
 
 def test_other_devices_and_bad_shapes_raise():
