@@ -10,15 +10,16 @@ run from the root of a checkout. Phases, each of which raises on failure:
    measure the constants of the H100 hardware profile
    (repro_torch.calibrate);
 2. hold each kernel against its plain PyTorch version on the card: the
-   four-step FFT over the reference's kernel sweep and the main path's
-   shapes, at atol = 1e-4*scale; the tiled transpose over several dtypes
-   and shapes and every block the main path's moves give it, exactly; the
+   four-step FFT over the reference's kernel sweep (with every radix
+   path: 16, 8, 4, 2, 3, 5, 7, a copy and primes above 7), a Karatsuba
+   permuted 128 x 128 case and the main path's shapes, at
+   atol = 1e-4*scale; the tiled transpose over several dtypes and shapes and every block the main path's moves give it, exactly; the
    complex multiply over a block sweep, a suffix broadcast and the FFT
    convolution's shape, at atol = 1e-5 (the reference's); the four-step
    (permuted, at 1e-4*scale) and the transpose (exactly) at the blocks
    fft_conv hands them on the mixer's path; the fused FFT convolution over
-   a factor x block_rows sweep and its own path's shape, at
-   atol = 2e-4*max|plain|;
+   a factor x batch (odd and even) x block_rows sweep and its own path's
+   shape, at atol = 2e-4*max|plain|;
 3. run the N-D FFT path at real size through the public entry points with
    the kernel backend (Planner(backends=("hopper",))): rfftn of a 16384^2
    real array and irfftn back, fftn of a 512^3 complex pair and ifftn back,
@@ -58,8 +59,11 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 FP32_PEAK = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores (published)
 HBM_PEAK = 3.35e12   # H100 SXM HBM3 bytes/s (published)
+# every radix path of the kernels: 16 (128 x 128), 8, 4, 2 (6 x 10), 3, 5,
+# 7, a copy (1) and the generic pass of a prime above 7 (11, 13, 127)
 FOUR_STEP_SWEEP = [(8, 8), (16, 16), (16, 32), (32, 64), (128, 128), (8, 128),
-                   (128, 8), (25, 40), (125, 8), (7, 3), (4, 9), (128, 1)]
+                   (128, 8), (25, 40), (125, 8), (7, 3), (4, 9), (128, 1),
+                   (11, 13), (127, 1), (1, 127), (6, 10)]
 # the arrays whose axes the main path moves: the rfftn 16384^2 spectrum
 # before its column pass, and the fftn 512^3 cube
 MAIN_SPECTRA = ((16384, 8193), (512, 512, 512))
@@ -70,8 +74,10 @@ CMUL_CASES = [((3, 40, 56), (3, 40, 56)), ((4, 300), (300,)),
               ((2, 3, 64), (3, 64)), ((5, 1001), (1001,)),
               ((4096, 64), (64,))]
 CMUL_BLOCKS = (1, 3, 256, 1024, 4096)
-FUSED_FACTORS = [(8, 8), (16, 32), (64, 64), (128, 8), (128, 128)]
+FUSED_FACTORS = [(8, 8), (16, 32), (64, 64), (128, 8), (128, 128), (11, 13),
+                 (127, 1), (6, 10)]
 FUSED_BLOCK_ROWS = (1, 4, 8)
+FUSED_BATCHES = (5, 6)     # the kernel pairs rows: an odd batch pads one
 # the FFT-conv mixer at olmo-1b's width (src/repro/configs/olmo_1b.py:
 # d_model 2048; fftconv_rank 16 is the ArchConfig default) on 4 x 8192
 # tokens: nf = 16384, factors (128, 128)
@@ -141,6 +147,7 @@ def phase_kernels(gen, main_shapes) -> dict:
              for b in (1, 5, 16)]
     cases += [((4, 1024), (32, 32), dict(karatsuba=k, permuted=p))
               for k in (False, True) for p in (False, True)]
+    cases += [((2, 16384), (128, 128), dict(karatsuba=True, permuted=True))]
     cases += [((2, 3, 256), (16, 16), {})]
     cases += [(shape, f, {}) for shape, f in main_shapes.values()]
     main_err = {}
@@ -268,14 +275,15 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
         plain = time_ms(lambda: fft_four_step_ref(xs, f))
         lib = time_ms(lambda: torch.fft.fft(xc))
         # the function is a length-n DFT of each row: 5 n log2(n) float
-        # operations and one complex f32 read and write per point; the
-        # four-step's own 8 n (n1 + n2) operations are reported as its rate
-        bound_ms, by = bound(5.0 * b * n * math.log2(n), 16.0 * b * n)
-        four_step_flops = 8.0 * b * n * (f[0] + f[1])
+        # operations and one complex f32 read and write per point
+        fft_flops, nbytes = 5.0 * b * n * math.log2(n), 16.0 * b * n
+        bound_ms, by = bound(fft_flops, nbytes)
         print(f"time four_step_fft {name} {shape} {f}: kernel {ms:.3f} ms, "
               f"plain {plain:.3f} ms, torch.fft.fft {lib:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({by}); four-step rate "
-              f"{four_step_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s [{label}]")
+              f"{bound_ms:.3f} ms ({by}, {bound_ms / ms:.1%} of it); "
+              f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s, "
+              f"{fft_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the FFT's "
+              f"operations [{label}]")
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=bound_ms, bound_by=by)
         del xs, xc
@@ -316,7 +324,7 @@ def phase_profile(label, calls) -> None:
         busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
         print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
               f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) [{label}]")
-        for e in rows[:8]:
+        for e in rows[:10]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
                   f"{e.key[:90]}")
 
@@ -417,12 +425,13 @@ def phase_conv_kernels(gen, factors, errs) -> dict:
     worst = 0.0
     for f in FUSED_FACTORS:
         n = f[0] * f[1]
-        x, h = randn((6, n), gen), decaying_filter(n, gen)
-        for block_rows in FUSED_BLOCK_ROWS:
-            err, scale = fused_error(x, h, f, block_rows)
-            check(err <= 2e-4 * scale, f"fftconv_fused {f} block_rows "
-                  f"{block_rows}: err {err} > 2e-4 * {scale}")
-            worst = max(worst, err / scale)
+        for batch in FUSED_BATCHES:
+            x, h = randn((batch, n), gen), decaying_filter(n, gen)
+            for block_rows in FUSED_BLOCK_ROWS:
+                err, scale = fused_error(x, h, f, block_rows)
+                check(err <= 2e-4 * scale, f"fftconv_fused {f} batch {batch} "
+                      f"block_rows {block_rows}: err {err} > 2e-4 * {scale}")
+                worst = max(worst, err / scale)
     x, h = randn((CONV_ROWS, nf), gen), decaying_filter(nf, gen)
     fused_path, scale = fused_error(x, h, factors)
     check(fused_path <= 2e-4 * scale, f"fftconv_fused ({CONV_ROWS}, {nf}): "
@@ -431,8 +440,9 @@ def phase_conv_kernels(gen, factors, errs) -> dict:
     print(f"checked complex_multiply on {cmul_cases} shape x block cases, "
           f"an unaligned case (err {unaligned:.3e}) and ({MIXER_B}, "
           f"{MIXER_D}, {nf}) x ({MIXER_D}, {nf}) (err {cmul_path:.3e}, "
-          f"limit 1e-5); fftconv_fused on {FUSED_FACTORS} x block_rows "
-          f"{FUSED_BLOCK_ROWS} (worst err/scale {worst:.3e}, limit 2e-4) and "
+          f"limit 1e-5); fftconv_fused on {FUSED_FACTORS} x batch "
+          f"{FUSED_BATCHES} x block_rows {FUSED_BLOCK_ROWS} (worst "
+          f"err/scale {worst:.3e}, limit 2e-4) and "
           f"({CONV_ROWS}, {nf}) {factors} (err {fused_path:.3e}, scale "
           f"{scale:.3e})")
     return {"complex_multiply": cmul_path, "fftconv_fused": fused_path,
@@ -588,26 +598,25 @@ def phase_conv_times(label, planners, mixer, x, factors, gen) -> dict:
                                    bound_ms=bound_ms, bound_by=by)
     del a, b, ac, bc
 
-    n1, n2 = factors
     xs, h = randn((CONV_ROWS, nf), gen), decaying_filter(nf, gen)
     kt = time_ms(lambda: fftconv_fused(xs, h, factors))
     plain = time_ms(lambda: fftconv_fused_plain(
         xs, filter_spectrum_plain(h, factors), factors))
     comp = time_ms(lambda: torch.fft.irfft(
         torch.fft.rfft(xs) * torch.fft.rfft(h), n=nf))
-    # the function: a length-nf FFT and inverse per row and the product;
-    # the kernel's own four contractions (real input, real output at the
-    # ends) are reported as its rate
-    bound_ms, by = bound((2 * 5.0 * nf * math.log2(nf) + 6.0 * nf)
-                         * CONV_ROWS, 8.0 * CONV_ROWS * nf)
-    kernel_flops = CONV_ROWS * nf * (8.0 * n1 + 16.0 * n2)
+    # the function: a length-nf FFT and inverse per row and the product,
+    # one f32 read and write per point
+    fft_flops = (2 * 5.0 * nf * math.log2(nf) + 6.0 * nf) * CONV_ROWS
+    nbytes = 8.0 * CONV_ROWS * nf
+    bound_ms, by = bound(fft_flops, nbytes)
     print(f"time fftconv_fused ({CONV_ROWS}, {nf}) {factors}: kernel "
           f"{kt:.3f} ms (with the filter spectrum's one-row four-step "
           f"launch), plain {plain:.3f} ms, torch.fft composition (rfft, "
           f"multiply, irfft; no single library call) {comp:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({by}); kernel rate "
-          f"{kernel_flops / (kt * 1e-3) / 1e12:.2f} TFLOP/s on its "
-          f"{kernel_flops / 1e9:.1f} GFLOP [{label}]")
+          f"{bound_ms:.3f} ms ({by}, {bound_ms / kt:.1%} of it); "
+          f"{nbytes / (kt * 1e-3) / 1e12:.2f} TB/s, "
+          f"{fft_flops / (kt * 1e-3) / 1e12:.2f} TFLOP/s of the FFT's "
+          f"operations [{label}]")
     out["fftconv_fused"] = dict(ms=kt, plain_ms=plain, library_ms=None,
                                 bound_ms=bound_ms, bound_by=by)
     del xs, h

@@ -83,6 +83,14 @@ def _twiddle_np(n1: int, n2: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
+def _roots_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
+    """w[k] = exp(sign * 2*pi*i * k / n), k < n: row 1 of W, for the radix
+    kernels' stage twiddles."""
+    ang = sign * 2.0 * np.pi * np.arange(n).astype(np.float64) / n
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def _half_twiddle_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
     k = np.arange(n // 2 + 1).astype(np.float64)
     ang = sign * 2.0 * np.pi * k / n
@@ -103,6 +111,10 @@ def dft_matrix(n: int, sign: int = -1, device="cpu") -> Complex:
 
 def twiddle_factors(n1: int, n2: int, sign: int = -1, device="cpu") -> Complex:
     return _on_device(_twiddle_np, (n1, n2, sign), torch.device(device))
+
+
+def roots(n: int, sign: int = -1, device="cpu") -> Complex:
+    return _on_device(_roots_np, (n, sign), torch.device(device))
 
 
 def _half_twiddle(n: int, sign: int, device) -> Complex:

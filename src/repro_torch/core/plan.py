@@ -75,7 +75,8 @@ class HardwareSpec:
 # "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name, power.limit): float32
 # torch.matmul 8192^3 with TF32 off, and a 1 GiB device-to-device copy
 # (bytes read + written). link_bw is NVLink's published 450 GB/s each way;
-# matmul_dim is the four-step kernel's register tile (8 columns per thread);
+# matmul_dim is the register tile (8 columns) of the four-step kernel's
+# dense first design, which the estimate still prices (PERF.md section 7);
 # vmem_bytes is the 50 MB L2.
 H100 = HardwareSpec("h100", flops=51.33e12, hbm_bw=2.974e12, link_bw=450e9,
                     matmul_dim=8, vmem_bytes=50 * 2 ** 20)

@@ -4,8 +4,9 @@ Every ``*.cu`` under ``repro_torch/kernels/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface (``extern "C"`` launchers that
 return a ``cudaError_t`` code). The libraries go to ``build/torch_kernels/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is not. The first call builds all sources at once, one ``nvcc`` process
+the source, the headers under ``kernels/`` (``common/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+not. The first call builds all sources at once, one ``nvcc`` process
 each, in parallel. Nothing here runs at import time: the CPU tests import
 every module on machines without ``nvcc``.
 """
@@ -43,9 +44,15 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library of ``src``, named by a hash of the source, every header
+    of the kernels' directory (by path and content, sorted) and the flags."""
+    kernels_dir = src.resolve().parents[1]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(kernels_dir.rglob("*.cuh")):
+        h.update(header.relative_to(kernels_dir).as_posix().encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

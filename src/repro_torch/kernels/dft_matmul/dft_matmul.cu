@@ -8,262 +8,183 @@
 //   C[k1, k2]  = sum_c B'[k1, c] * W2[c, k2]               (DFT_n2)
 //   X[k2*n1 + k1] = C[k1, k2]   (digit transpose; C flat when PERMUTED)
 //
-// What bounds it: 8*n*(n1+n2) flops per row against 16*n bytes, i.e. 256
-// flops per byte at n = 128*128, so operations. The reference holds the
-// result to atol = 1e-4*scale, which TF32 tensor cores miss, so the
-// arithmetic is FP32 FMA on the CUDA cores.
+// What bounds it: the function reads and writes 16 bytes a point (two f32
+// pairs) and needs about 5*log2(n) flops a point, 70 at n = 128*128, so
+// bytes bound it on this card (0.64 ms for 8193 rows of 16384 at
+// 3.35 TB/s). The TPU kernel runs DFT_n1 and DFT_n2 as dense matmuls
+// (8*(n1+n2) flops a point, 29x the FFT's at 128 x 128), which the MXU
+// affords; on FP32 CUDA cores they made the kernel bound by operations it
+// need not do. The reference holds the result to atol = 1e-4*scale, which
+// TF32 tensor cores miss, so the arithmetic is FP32 on the CUDA cores.
 //
-// Design: a CTA holds `rows_per_cta` whole rows in shared memory (one row of
-// 128*128 is 128 KiB, above the 48 KiB default, hence cudaFuncSetAttribute),
-// as the TPU kernel holds its block in VMEM, and every intermediate stays
-// there: x is read from device memory once, the twiddled B' overwrites A in
-// place, C is staged back in output order, and X is written once, both
-// passes coalesced. Each thread owns a 4 x 8 register tile of outputs (4
-// consecutive k1 by 8 columns strided across the row), so one step of a
-// contraction loads 12 complex values for 32 complex multiply-adds, and the
-// shared-memory rows are padded by one element so that the strided reads of
-// the second contraction fall in different banks. All threads hold their
-// tile at once, so the in-place writes wait for one barrier. A CTA has 512
-// threads when a row needs more than 256 tiles (the 128 x 128 row) and 256
-// otherwise, so that two CTAs share an SM and one's copies overlap the
-// other's arithmetic; the 512-thread CTA, alone on its SM, unrolls its
-// contraction loops by 4 to keep more loads in flight. Karatsuba keeps
-// the three real sums (ar*wr, ai*wi, (ar+ai)*(wr+wi)) apart exactly as the
-// reference's three matmuls do.
+// Design: DFT_n1 and DFT_n2 are in-place mixed-radix FFTs
+// (common/fft_radix.cuh) over the CTA's rows in shared memory (a 128 x 128
+// row is 135 KiB, so one row a CTA; shorter rows go several to a CTA). A
+// thread holds one butterfly at a time and a pass needs one barrier.
+// DFT_n1 is decimation in time: its first pass reads the rows of the
+// (n1, n2) view from device memory in digit-reversed order, consecutive
+// threads on consecutive columns, so the loads coalesce (it needs no
+// twiddle, so the tables reach shared memory meanwhile), and its last pass
+// multiplies by T in natural order. DFT_n2 is decimation in frequency along the rows, and its
+// last pass writes X[k2*n1 + k1] from digit-reversed position p (k2 =
+// rev[p]) with consecutive threads on consecutive k1, so the digit
+// transpose is stored coalesced too. `permuted` instead leaves C in shared
+// memory and copies it out in the flat order k1*n2 + k2. Each element is
+// read from and written to device memory once. KARATSUBA forms every
+// twiddle product with three real multiplies; `permuted` is a flag of the
+// launch, not a template, so that the source compiles to two kernels.
 
-#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "../common/fft_radix.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;   // threads per CTA; one tile each
-constexpr int kSmallThreads = 256;  // ... when a row has at most 256 tiles
-constexpr int kTileK = 4;       // consecutive k1 per thread
-constexpr int kTileC = 8;       // columns (c, then k2) per thread, strided
-constexpr int kMaxFactor = 128;
-constexpr int kMaxSmem = 227 * 1024;
+using fft_radix::Axis;
+using fft_radix::Smem;
 
-template <bool KARATSUBA>
-struct Acc;
+// Rows of more than kPoints points (BIG) take a CTA each, alone on its SM,
+// with 128 registers a thread, enough for radix-16 butterflies; shorter
+// rows go several to a CTA of about kPoints points, two CTAs an SM, with
+// 64 registers a thread and radices up to 8.
+constexpr int kThreads = 512;
+constexpr int kPoints = 8192;
 
-template <>
-struct Acc<false> {
-  float re[kTileK][kTileC], im[kTileK][kTileC];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int p = 0; p < kTileK; ++p)
-#pragma unroll
-      for (int q = 0; q < kTileC; ++q) re[p][q] = im[p][q] = 0.f;
-  }
-  __device__ __forceinline__ void mac(int p, int q, float2 a, float2 w) {
-    re[p][q] = fmaf(a.x, w.x, re[p][q]);
-    re[p][q] = fmaf(-a.y, w.y, re[p][q]);
-    im[p][q] = fmaf(a.x, w.y, im[p][q]);
-    im[p][q] = fmaf(a.y, w.x, im[p][q]);
-  }
-  __device__ __forceinline__ float2 get(int p, int q) const {
-    return make_float2(re[p][q], im[p][q]);
-  }
-};
-
-template <>
-struct Acc<true> {
-  float p1[kTileK][kTileC], p2[kTileK][kTileC], p3[kTileK][kTileC];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int p = 0; p < kTileK; ++p)
-#pragma unroll
-      for (int q = 0; q < kTileC; ++q) p1[p][q] = p2[p][q] = p3[p][q] = 0.f;
-  }
-  __device__ __forceinline__ void mac(int p, int q, float2 a, float2 w) {
-    p1[p][q] = fmaf(a.x, w.x, p1[p][q]);
-    p2[p][q] = fmaf(a.y, w.y, p2[p][q]);
-    p3[p][q] = fmaf(a.x + a.y, w.x + w.y, p3[p][q]);
-  }
-  __device__ __forceinline__ float2 get(int p, int q) const {
-    return make_float2(p1[p][q] - p2[p][q], p3[p][q] - p1[p][q] - p2[p][q]);
-  }
-};
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// w1: (n1, n1), tw: (n1, n2), w2: (n2, n2), all complex interleaved (float2).
-template <int THREADS, bool KARATSUBA, bool PERMUTED>
-__global__ void __launch_bounds__(THREADS, kThreads / THREADS)
+// r1 (n1), r2 (n2): roots w^i of each factor; tw (n1, n2): T. All
+// interleaved complex, sign -1.
+template <bool KARATSUBA, bool BIG>
+__global__ void __launch_bounds__(kThreads, BIG ? 1 : 2)
 four_step_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                 const float2* __restrict__ w1, const float2* __restrict__ tw,
-                 const float2* __restrict__ w2, float* __restrict__ yr,
-                 float* __restrict__ yi, long long rows, int n1, int n2,
-                 int rows_per_cta) {
-  extern __shared__ float2 sa[];
-  constexpr int kUnroll = THREADS == kThreads ? 4 : 1;
-  const int n = n1 * n2;
-  const int ld = n2 + 1;          // row stride of A, B' and (permuted) C
-  const int ldo = n1 + 1;         // row stride of C in output order
-  const int s = (n2 + kTileC - 1) / kTileC;
-  const int tiles = ((n1 + kTileK - 1) / kTileK) * s;
+                 const float2* __restrict__ r1, const float2* __restrict__ tw,
+                 const float2* __restrict__ r2, float* __restrict__ yr,
+                 float* __restrict__ yi, long long rows, int rows_per_cta,
+                 bool permuted, Axis a1, Axis a2) {
+  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;
+  const Smem sm(n2);
+  float2* w1 = fft_radix::dynamic_smem();
+  float2* w2 = w1 + n1;
+  float2* buf = w2 + n2;
+  unsigned char* rev2 = reinterpret_cast<unsigned char*>(
+      buf + Smem::size(rows_per_cta * n1, n2));
+  unsigned char* pos2 = rev2 + n2;
+  for (int i = threadIdx.x; i < n1; i += blockDim.x) w1[i] = r1[i];
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+    w2[i] = r2[i];
+    rev2[i] = a2.rev[i];
+    pos2[i] = a2.pos[i];
+  }
   const long long row0 = (long long)blockIdx.x * rows_per_cta;
   const int nrows = (int)min((long long)rows_per_cta, rows - row0);
-  const long long base = row0 * n;
+  const float* gr = xr + row0 * n;
+  const float* gi = xi + row0 * n;
+  float* outr = yr + row0 * n;
+  float* outi = yi + row0 * n;
+  auto at = [&](int r, int k1, int c) -> float2& {
+    return buf[sm.at(r * n1 + k1, c)];
+  };
+  // the first pass (DIT, blocks of its whole radix) uses no twiddle, so the
+  // tables above wait for the barrier after it, unless it is generic
+  if (!fft_radix::has_butterfly(a1.radix[a1.passes - 1])) __syncthreads();
 
-  // stage 0: the CTA's rows into shared memory, A[r][j][c]
-  for (int e = threadIdx.x; e < nrows * n; e += THREADS) {
-    const int r = e / n, i = e - r * n, j = i / n2, c = i - j * n2;
-    sa[(r * n1 + j) * ld + c] = make_float2(__ldg(xr + base + e),
-                                            __ldg(xi + base + e));
-  }
-  __syncthreads();
-
-  // this thread's tile: row r, k1 in k0..k0+3, columns cs + s*q
-  const int r = threadIdx.x / tiles;
-  const int rem = threadIdx.x - r * tiles;
-  const int k0 = (rem / s) * kTileK;
-  const int cs = rem - (rem / s) * s;
-  const bool active = r < nrows;
-  int kk[kTileK], cc[kTileC];     // clamped, so reads stay in bounds
-#pragma unroll
-  for (int p = 0; p < kTileK; ++p) kk[p] = min(k0 + p, n1 - 1);
-#pragma unroll
-  for (int q = 0; q < kTileC; ++q) cc[q] = min(cs + s * q, n2 - 1);
-  float2* row = sa + r * n1 * ld;
-
-  // stage 1: DFT_n1 down the columns
-  Acc<KARATSUBA> acc;
-  acc.zero();
-  if (active) {
-#pragma unroll kUnroll
-    for (int j = 0; j < n1; ++j) {
-      float2 a[kTileC], w[kTileK];
-#pragma unroll
-      for (int q = 0; q < kTileC; ++q) a[q] = row[j * ld + cc[q]];
-#pragma unroll
-      for (int p = 0; p < kTileK; ++p) w[p] = __ldg(w1 + j * n1 + kk[p]);
-#pragma unroll
-      for (int p = 0; p < kTileK; ++p)
-#pragma unroll
-        for (int q = 0; q < kTileC; ++q) acc.mac(p, q, a[q], w[p]);
-    }
-  }
-  __syncthreads();
-
-  // stage 2: twiddle, B' over A in place
-  if (active) {
-#pragma unroll
-    for (int p = 0; p < kTileK; ++p)
-#pragma unroll
-      for (int q = 0; q < kTileC; ++q) {
-        const int k1 = k0 + p, c = cs + s * q;
-        if (k1 < n1 && c < n2)
-          row[k1 * ld + c] = cmul(acc.get(p, q), __ldg(tw + k1 * n2 + c));
-      }
-  }
-  __syncthreads();
-
-  // stage 3: DFT_n2 along the rows of B'
-  acc.zero();
-  if (active) {
-#pragma unroll kUnroll
-    for (int c = 0; c < n2; ++c) {
-      float2 b[kTileK], w[kTileC];
-#pragma unroll
-      for (int p = 0; p < kTileK; ++p) b[p] = row[kk[p] * ld + c];
-#pragma unroll
-      for (int q = 0; q < kTileC; ++q) w[q] = __ldg(w2 + c * n2 + cc[q]);
-#pragma unroll
-      for (int p = 0; p < kTileK; ++p)
-#pragma unroll
-        for (int q = 0; q < kTileC; ++q) acc.mac(p, q, b[p], w[q]);
-    }
-  }
-  __syncthreads();
-
-  // stage 4: C into shared memory in output order (the digit transpose)
-  if (active) {
-#pragma unroll
-    for (int p = 0; p < kTileK; ++p)
-#pragma unroll
-      for (int q = 0; q < kTileC; ++q) {
-        const int k1 = k0 + p, k2 = cs + s * q;
-        if (k1 < n1 && k2 < n2) {
-          if (PERMUTED)
-            row[k1 * ld + k2] = acc.get(p, q);
-          else
-            sa[(r * n2 + k2) * ldo + k1] = acc.get(p, q);
+  // DFT_n1 down the columns (line c), DIT: the first pass reads position p
+  // from row rev[p] of the (n1, n2) view, consecutive threads on
+  // consecutive columns; T on the last pass's outputs, k1 in natural order
+  const int last1 = a1.passes - 1, last2 = a2.passes - 1;
+  fft_radix::transform<BIG, true, false, KARATSUBA>(
+      a1, n2, nrows, w1, [](int) { return true; },
+      [&](int pass, int r, int c, int p) {
+        if (pass == 0) {
+          const long long e = (long long)r * n + a1.rev[p] * n2 + c;
+          return make_float2(__ldg(gr + e), __ldg(gi + e));
         }
-      }
-  }
-  __syncthreads();
+        return at(r, p, c);
+      },
+      [&](int pass, int r, int c, int k1, float2 v) {
+        if (pass == last1)
+          v = fft_radix::twiddle_mul<KARATSUBA>(v, __ldg(tw + k1 * n2 + c));
+        at(r, k1, c) = v;
+      });
 
-  // stage 5: the CTA's rows out, coalesced
-  for (int e = threadIdx.x; e < nrows * n; e += THREADS) {
-    const int rr = e / n, i = e - rr * n;
-    float2 v;
-    if (PERMUTED) {
-      const int k1 = i / n2, k2 = i - k1 * n2;
-      v = sa[(rr * n1 + k1) * ld + k2];
-    } else {
-      const int k2 = i / n1, k1 = i - k2 * n1;
-      v = sa[(rr * n2 + k2) * ldo + k1];
-    }
-    yr[base + e] = v.x;
-    yi[base + e] = v.y;
+  // DFT_n2 along the rows (line k1), DIF: position p ends with k2 = rev2[p];
+  // the last pass stores X[k2*n1 + k1], consecutive threads on consecutive
+  // k1
+  fft_radix::transform<BIG, false, false, KARATSUBA>(
+      a2, n1, nrows, w2, [](int) { return true; },
+      [&](int, int r, int k1, int c) { return at(r, k1, c); },
+      [&](int pass, int r, int k1, int p, float2 v) {
+        if (pass < last2 || permuted) {
+          at(r, k1, p) = v;
+          return;
+        }
+        const long long e = (long long)r * n + rev2[p] * n1 + k1;
+        outr[e] = v.x;
+        outi[e] = v.y;
+      });
+  if (!permuted) return;
+
+  // permuted: C[k1, k2] from position pos2[k2] of row k1 to k1*n2 + k2,
+  // consecutive threads on consecutive k2
+  const fft_radix::Div by_n2(n2);
+  for (int e = threadIdx.x; e < nrows * n; e += blockDim.x) {
+    const int row = by_n2(e), k2 = e - row * n2;     // row = r * n1 + k1
+    const float2 v = buf[sm.at(row, pos2[k2])];
+    outr[e] = v.x;
+    outi[e] = v.y;
   }
 }
 
-template <bool KARATSUBA, bool PERMUTED>
-cudaError_t launch(const float* xr, const float* xi, const float2* w1,
-                   const float2* tw, const float2* w2, float* yr, float* yi,
-                   long long rows, int n1, int n2, cudaStream_t stream) {
-  const int tiles = ((n1 + kTileK - 1) / kTileK) *
-                    ((n2 + kTileC - 1) / kTileC);
-  const int threads = tiles > kSmallThreads ? kThreads : kSmallThreads;
+template <bool KARATSUBA>
+cudaError_t launch(const float* xr, const float* xi, const float2* r1,
+                   const float2* tw, const float2* r2, float* yr, float* yi,
+                   long long rows, int n1, int n2, bool permuted,
+                   cudaStream_t stream) {
+  const int n = n1 * n2;
+  const bool big = n > kPoints;
+  const long long tables = (n1 + n2) * (long long)sizeof(float2) + 2 * n2;
   const long long rows_per_cta =
-      std::min<long long>(std::max(1, threads / tiles), rows);
+      fft_radix::rows_per_cta(n1, n2, rows, kPoints, tables);
+  if (rows_per_cta < 1) return cudaErrorInvalidValue;
   const long long ctas = (rows + rows_per_cta - 1) / rows_per_cta;
-  const long long smem = rows_per_cta *
-                         std::max(n1 * (n2 + 1), n2 * (n1 + 1)) *
-                         (long long)sizeof(float2);
-  if (ctas > INT_MAX || smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = threads == kThreads
-                    ? four_step_kernel<kThreads, KARATSUBA, PERMUTED>
-                    : four_step_kernel<kSmallThreads, KARATSUBA, PERMUTED>;
+  const long long smem =
+      Smem::size((int)(rows_per_cta * n1), n2) * sizeof(float2) + tables;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  auto kernel = big ? four_step_kernel<KARATSUBA, true>
+                    : four_step_kernel<KARATSUBA, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)ctas, threads, (size_t)smem, stream>>>(
-      xr, xi, w1, tw, w2, yr, yi, rows, n1, n2, (int)rows_per_cta);
+  const Axis a1 = fft_radix::plan_axis(n1, big),
+             a2 = fft_radix::plan_axis(n2, big);
+  kernel<<<(unsigned)ctas, kThreads, (size_t)smem, stream>>>(
+      xr, xi, r1, tw, r2, yr, yi, rows, (int)rows_per_cta, permuted, a1, a2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 on success). Pointers are device pointers to
-// contiguous float32 data: x/y (rows, n1*n2), tables interleaved complex.
-extern "C" int four_step_fft(const void* xr, const void* xi, const void* w1,
-                             const void* tw, const void* w2, void* yr,
+// contiguous float32 data: x/y (rows, n1*n2); r1 (n1) and r2 (n2), the roots
+// w^i of each factor, and tw (n1, n2), interleaved complex, sign -1.
+extern "C" int four_step_fft(const void* xr, const void* xi, const void* r1,
+                             const void* tw, const void* r2, void* yr,
                              void* yi, long long rows, int n1, int n2,
                              int karatsuba, int permuted, void* stream) {
-  if (rows < 1 || n1 < 1 || n2 < 1 || n1 > kMaxFactor || n2 > kMaxFactor)
+  if (rows < 1 || n1 < 1 || n2 < 1 || n1 > fft_radix::kMaxFactor ||
+      n2 > fft_radix::kMaxFactor)
     return (int)cudaErrorInvalidValue;
   const auto* a = static_cast<const float*>(xr);
   const auto* b = static_cast<const float*>(xi);
-  const auto* t1 = static_cast<const float2*>(w1);
+  const auto* t1 = static_cast<const float2*>(r1);
   const auto* t = static_cast<const float2*>(tw);
-  const auto* t2 = static_cast<const float2*>(w2);
+  const auto* t2 = static_cast<const float2*>(r2);
   auto* o = static_cast<float*>(yr);
   auto* p = static_cast<float*>(yi);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (karatsuba) {
-    err = permuted ? launch<true, true>(a, b, t1, t, t2, o, p, rows, n1, n2, s)
-                   : launch<true, false>(a, b, t1, t, t2, o, p, rows, n1, n2, s);
-  } else {
-    err = permuted ? launch<false, true>(a, b, t1, t, t2, o, p, rows, n1, n2, s)
-                   : launch<false, false>(a, b, t1, t, t2, o, p, rows, n1, n2, s);
-  }
+  const cudaError_t err =
+      karatsuba
+          ? launch<true>(a, b, t1, t, t2, o, p, rows, n1, n2, permuted != 0, s)
+          : launch<false>(a, b, t1, t, t2, o, p, rows, n1, n2, permuted != 0, s);
   return (int)err;
 }
 

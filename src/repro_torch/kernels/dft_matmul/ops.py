@@ -29,13 +29,14 @@ def interleaved(c: algo.Complex) -> torch.Tensor:
 
 
 def tables(n1: int, n2: int, device: torch.device):
-    """W1, T, W2 (sign -1) as interleaved complex tensors on ``device``."""
+    """The roots w^k of n1, T, and the roots of n2 (sign -1), as interleaved
+    complex tensors on ``device``: the radix kernels' twiddle tables."""
     key = (n1, n2, device)
     if key not in _TABLES:
         _TABLES[key] = (
-            interleaved(algo.dft_matrix(n1, -1, device)),
+            interleaved(algo.roots(n1, -1, device)),
             interleaved(algo.twiddle_factors(n1, n2, -1, device)),
-            interleaved(algo.dft_matrix(n2, -1, device)))
+            interleaved(algo.roots(n2, -1, device)))
     return _TABLES[key]
 
 
@@ -68,12 +69,12 @@ def fft_four_step(x: algo.Complex, factors: Tuple[int, int], *,
     yr, yi = torch.empty_like(a), torch.empty_like(b)
     rows = a.shape[0]
     if rows:
-        w1, tw, w2 = tables(n1, n2, xr.device)
+        r1, tw, r2 = tables(n1, n2, xr.device)
         lib = binding.lib()
         with torch.cuda.device(xr.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.four_step_fft(a.data_ptr(), b.data_ptr(), w1.data_ptr(),
-                                   tw.data_ptr(), w2.data_ptr(),
+            rc = lib.four_step_fft(a.data_ptr(), b.data_ptr(), r1.data_ptr(),
+                                   tw.data_ptr(), r2.data_ptr(),
                                    yr.data_ptr(), yi.data_ptr(), rows, n1, n2,
                                    int(karatsuba), int(permuted), stream)
         if rc:

@@ -54,9 +54,9 @@ def fftconv_fused(x: torch.Tensor, h: torch.Tensor,
                   block_rows: int = 8) -> torch.Tensor:
     """y[b] = circular_conv(x[b], h): x (B, nf) and h (nf,) real float32,
     nf = n1*n2 with both factors in 1..128. ``block_rows`` asks for rows per
-    CTA; the kernel takes at most as many as its threads (one 4 x 8 tile
-    each, 512 at most) and shared memory hold. The result does not depend
-    on it."""
+    CTA; the kernel takes them in pairs (one complex row each), at most as
+    many as its threads (32 points each, 512 at most) and shared memory
+    hold. The result does not depend on it."""
     global LAUNCHES
     n1, n2 = _factors(factors)
     nf = n1 * n2
@@ -80,14 +80,14 @@ def fftconv_fused(x: torch.Tensor, h: torch.Tensor,
     src = x.contiguous()
     out = torch.empty_like(src)
     if src.shape[0]:
-        w1, tw, w2 = dft_ops.tables(n1, n2, x.device)
+        r1, tw, r2 = dft_ops.tables(n1, n2, x.device)
         spec = dft_ops.interleaved(h_spec)
         lib = binding.lib()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.fftconv_fused(src.data_ptr(), spec.data_ptr(),
-                                   w1.data_ptr(), tw.data_ptr(),
-                                   w2.data_ptr(), out.data_ptr(),
+                                   r1.data_ptr(), tw.data_ptr(),
+                                   r2.data_ptr(), out.data_ptr(),
                                    src.shape[0], n1, n2, int(block_rows),
                                    stream)
         if rc:

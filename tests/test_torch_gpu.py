@@ -31,7 +31,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("factors", [(8, 8), (16, 32), (128, 128), (8, 128),
-                                     (128, 8), (25, 40), (7, 3), (128, 1)])
+                                     (128, 8), (25, 40), (7, 3), (128, 1),
+                                     (11, 13), (127, 1), (1, 127), (6, 10)])
 @pytest.mark.parametrize("karatsuba", [False, True])
 @pytest.mark.parametrize("permuted", [False, True])
 def test_four_step_kernel_matches_plain(cuda, factors, karatsuba, permuted):
@@ -126,12 +127,14 @@ def test_complex_multiply_raises_on_bad_input(cuda):
 
 
 @pytest.mark.parametrize("factors", [(8, 8), (16, 32), (64, 64), (128, 8),
-                                     (8, 128), (128, 128), (5, 7), (128, 1)])
+                                     (8, 128), (128, 128), (5, 7), (128, 1),
+                                     (11, 13), (127, 1), (6, 10)])
 @pytest.mark.parametrize("block_rows", [1, 4, 8])
-def test_fftconv_fused_kernel_matches_plain(cuda, factors, block_rows):
+@pytest.mark.parametrize("batch", [6, 5])
+def test_fftconv_fused_kernel_matches_plain(cuda, factors, block_rows, batch):
     g = torch.Generator(device=cuda).manual_seed(5)
     n = factors[0] * factors[1]
-    x = torch.randn(6, n, device=cuda, generator=g)
+    x = torch.randn(batch, n, device=cuda, generator=g)
     h = torch.randn(n, device=cuda, generator=g) * torch.exp(
         -torch.arange(n, device=cuda) / 64.0)
     before = kernels.launch_counts()["fftconv_fused"]

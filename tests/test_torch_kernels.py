@@ -7,6 +7,8 @@ against the same plain versions on the card by tests/test_torch_gpu.py and
 chip_smoke.py.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,3 +101,24 @@ def test_other_devices_and_bad_shapes_raise():
         fft_four_step(tx, (8, 4))
     with pytest.raises(ValueError):
         transpose(torch.zeros(5))
+
+
+def test_build_target_follows_the_kernels_headers(tmp_path):
+    # the library's name hashes the source with every header under kernels/,
+    # so an edited header rebuilds the kernels that include it (pure Python)
+    from repro_torch.kernels import _build
+    kernels_dir = tmp_path / "kernels"
+    for rel in ("dft_matmul/dft_matmul.cu", "common/fft_radix.cuh"):
+        (kernels_dir / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(_build.KERNELS_DIR / rel, kernels_dir / rel)
+    src = kernels_dir / "dft_matmul" / "dft_matmul.cu"
+    first = _build._target(src)
+    assert first.name.startswith("dft_matmul-") and first.suffix == ".so"
+    assert _build._target(src) == first
+    assert first == _build._target(_build.sources()["dft_matmul"])
+    header = kernels_dir / "common" / "fft_radix.cuh"
+    original = header.read_bytes()
+    header.write_bytes(original + b"\n// edited\n")
+    assert _build._target(src) != first
+    header.write_bytes(original)
+    assert _build._target(src) == first
