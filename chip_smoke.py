@@ -38,7 +38,21 @@ run from the root of a checkout. Phases, each of which raises on failure:
    held against float64 torch.fft, each with the launch counts of its run;
 6. time the mixer and fft_conv (hopper planner, torch planner, a torch.fft
    composition) and the complex-multiply and fused kernels alone at their
-   path shapes, then trace one mixer call with torch.profiler.
+   path shapes, then trace one mixer call with torch.profiler;
+7. free those arrays and run the paper's shared-memory variants
+   (repro_torch.core.variants: every name in VARIANTS, strided, and the
+   composed staged_for_loop stages) on a 16384^2 f32 array through the
+   hopper planner, each held against float64 torch.fft.rfft2 at
+   atol = 2e-4*max|ref| with its kernel launches read around it alone
+   (four-step 1; transpose 4 for for_loop, future_sync and the stages, 2
+   for future_naive and future_opt, 0 for future_agas and strided), and
+   for_loop against repro_torch.rfftn within 1e-6*max|ref|;
+8. time them, the card's Fig. 1 and Fig. 2: every variant at 4096^2,
+   8192^2 and 16384^2 with its ratio to for_loop, future_naive at 4096^2
+   over the reference's task sizes, the four stages at 16384^2 alone
+   against for_loop, as medians of CUDA-event timed runs (10, or 3 for the
+   chunked variants) after one warm-up run with the wall time beside
+   them, then trace for_loop and future_naive (task_size 8) at 4096^2.
 
 The last two lines are the kernel table as one JSON object, then the card
 label, then {"ok": true, "device": {...}}. It needs one GPU and exits
@@ -49,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -83,6 +98,21 @@ FUSED_BATCHES = (5, 6)     # the kernel pairs rows: an odd batch pads one
 # tokens: nf = 16384, factors (128, 128)
 MIXER_D, MIXER_RANK, MIXER_B, MIXER_S = 2048, 16, 4, 8192
 CONV_ROWS, CONV_L = 8192, 8192     # the fused kernel's causal path
+# the variants: the 2D size class of the paper's shared-memory study (and
+# rfftn's shape above), the card's Fig. 1 sizes, the variants in the
+# reference's Fig. 1 order, and its task-size sweep (benchmarks/fig1_variants.py)
+VARIANT_N = 16384
+VARIANT_SIZES = (4096, 8192, 16384)
+VARIANT_ORDER = ("for_loop", "future_sync", "future_opt", "future_naive",
+                 "future_agas", "strided")
+CHUNKED = ("future_naive", "future_opt")    # host-bound: 3 timed runs
+TASK_SIZES, TASK_SWEEP_N = (1, 2, 4, 8, 16, 64, 256), 4096
+# transpose kernel launches of one call; the four-step's is 1 for each
+# (future_naive and future_opt scatter their rows with torch's copy, agas
+# gathers, strided copies its view inside the four-step op)
+VARIANT_TRANSPOSES = {"for_loop": 4, "future_sync": 4, "staged": 4,
+                      "future_naive": 2, "future_opt": 2, "future_agas": 0,
+                      "strided": 0}
 
 
 def check(cond: bool, what: str) -> None:
@@ -322,8 +352,10 @@ def phase_profile(label, calls) -> None:
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        ops = sum(e.count for e in rows)
         print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) [{label}]")
+              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), {ops} device "
+              f"ops [{label}]")
         for e in rows[:10]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
                   f"{e.key[:90]}")
@@ -623,6 +655,144 @@ def phase_conv_times(label, planners, mixer, x, factors, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the paper's shared-memory variants (Figs. 1 and 2)
+# ---------------------------------------------------------------------------
+
+
+def variant_runs(planner) -> list:
+    """(name, call on x) of every variant, and of the composed stages."""
+    from repro_torch.core import variants
+
+    def staged(x):
+        val = x
+        for _, stage in variants.staged_for_loop(x, planner):
+            val = stage(val)
+        return val
+
+    return [(name, lambda x, name=name: variants.run_variant(name, x,
+                                                             planner))
+            for name in VARIANT_ORDER] + [("staged", staged)]
+
+
+def phase_variants(planner, gen) -> dict:
+    """Every variant at VARIANT_N^2 against float64 torch.fft.rfft2, with
+    the launches of each call alone; returns them by name."""
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core.variants import shrink_task_size
+    n = VARIANT_N
+    mh = n // 2 + 1
+    rows, cols = shrink_task_size(n, 8), shrink_task_size(mh, 8)
+    print(f"variants at {n}^2, task_size 8: {n // rows} row tasks of {rows} "
+          f"rows (future_naive, future_opt), {mh // cols} column tasks of "
+          f"{cols} columns (future_opt)")
+    x = randn((n, n), gen)
+    ref = torch.fft.rfft2(x.double())
+    scale = ref.abs().max().item()
+    tol = 2e-4 * scale
+    spec = repro_torch.rfftn(x, planner=planner)
+    out = {}
+    for name, run in variant_runs(planner):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        y = run(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        want = {"four_step_fft": 1,
+                "batched_transpose": VARIANT_TRANSPOSES[name],
+                "complex_multiply": 0, "fftconv_fused": 0}
+        check(launches == want, f"variant {name} launches {launches}, "
+              f"expected {want}")
+        check(all(tuple(t.shape) == (n, mh) and t.is_contiguous()
+                  and torch.isfinite(t).all().item() for t in y),
+              f"variant {name}: output shape, layout or non-finite values")
+        err = max_err(y, ref)
+        check(err <= tol, f"variant {name} {n}^2 err {err} > {tol}")
+        line = f"variant {name} {n}^2: err {err:.4e} (tol {tol:.4e})"
+        if name == "for_loop":
+            agree = max((y[0] - spec[0]).abs().max().item(),
+                        (y[1] - spec[1]).abs().max().item())
+            check(agree <= 1e-6 * scale, f"for_loop differs from rfftn by "
+                  f"{agree} > 1e-6 * {scale}")
+            line += f", from rfftn {agree:.3e} (limit {1e-6 * scale:.3e})"
+        print(f"{line}; {seconds:.3f} s, first call")
+        out[name] = {k: launches[k] for k in ("four_step_fft",
+                                               "batched_transpose")}
+        del y
+    print("variant launches " + json.dumps(out))
+    return out
+
+
+def time_variant(fn, reps: int):
+    """(median CUDA-event ms, median wall ms) of ``reps`` runs of ``fn``
+    after one warm-up run; the host waits for each run to end."""
+    fn()
+    torch.cuda.synchronize()
+    device_ms, wall_ms = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    return statistics.median(device_ms), statistics.median(wall_ms)
+
+
+def phase_variant_times(label, planner, gen) -> None:
+    """The card's Fig. 1 (sizes, task sizes) and Fig. 2 (stages), and the
+    profiles of for_loop and future_naive at TASK_SWEEP_N^2."""
+    from repro_torch.core import variants
+    fig1 = {}
+    for n in VARIANT_SIZES:
+        x = randn((n, n), gen)
+        for name in VARIANT_ORDER:
+            reps = 3 if name in CHUNKED else 10
+            ms, wall = time_variant(
+                lambda: variants.run_variant(name, x, planner), reps)
+            fig1[name, n] = ms
+            print(f"time variant {name} {n}^2: {ms:.3f} ms (wall {wall:.3f} "
+                  f"ms; median of {reps}), {ms / fig1['for_loop', n]:.2f}x "
+                  f"for_loop [{label}]")
+        del x
+    n = TASK_SWEEP_N
+    x = randn((n, n), gen)
+    for ts in TASK_SIZES:
+        ms, wall = time_variant(lambda: variants.run_variant(
+            "future_naive", x, planner, task_size=ts), 3)
+        tasks = n // variants.shrink_task_size(n, ts)
+        print(f"time future_naive {n}^2 task_size {ts} ({tasks} tasks): "
+              f"{ms:.3f} ms (wall {wall:.3f} ms), "
+              f"{ms / fig1['for_loop', n]:.2f}x for_loop [{label}]")
+    phase_profile(label, [
+        (f"variant for_loop {n}^2",
+         lambda: variants.run_variant("for_loop", x, planner)),
+        (f"variant future_naive {n}^2 task_size 8",
+         lambda: variants.run_variant("future_naive", x, planner))])
+    del x
+    n = VARIANT_N
+    x = randn((n, n), gen)
+    val, total = x, 0.0
+    for name, stage in variants.staged_for_loop(x, planner):
+        ms, wall = time_variant(lambda: stage(val), 10)
+        print(f"time stage {name} {n}^2: {ms:.3f} ms (wall {wall:.3f} ms) "
+              f"[{label}]")
+        total += ms
+        val = stage(val)
+    del val
+    fused, wall = time_variant(
+        lambda: variants.run_variant("for_loop", x, planner), 10)
+    print(f"time stages {n}^2: sum {total:.3f} ms, for_loop {fused:.3f} ms "
+          f"(wall {wall:.3f} ms), stage_sum_over_fused "
+          f"{total / fused:.3f} [{label}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -694,6 +864,19 @@ def main() -> int:
         phase_profile(label, [(f"FFTConvMixer({MIXER_D}, {MIXER_RANK}) "
                                f"{tuple(xm.shape)} hopper",
                                lambda: mixer(xm))])
+    del mixer, xm
+    torch.cuda.empty_cache()
+
+    # phase 7: the paper's shared-memory variants at real size, then 8:
+    # their times
+    t0 = time.perf_counter()
+    phase_variants(planner, gen)
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    phase_variant_times(label, planner, gen)
+    torch.cuda.empty_cache()
+    print(f"variant phases: 7 took {t7 - t0:.1f} s, 8 took "
+          f"{time.perf_counter() - t7:.1f} s")
 
     head = times["rfftn column pass"]
     table = {"kernels": [

@@ -105,6 +105,14 @@ def _on_device(table, args, device: torch.device) -> Complex:
     return (torch.from_numpy(re).to(device), torch.from_numpy(im).to(device))
 
 
+@functools.lru_cache(maxsize=None)
+def _wrap_index(m: int, device: torch.device) -> torch.Tensor:
+    """(-k) mod m for k = 0..m, on ``device``. Kept on the device like the
+    tables: a copy from host memory in every call would make the host wait
+    for the stream (a blocking copy), a barrier inside every row task."""
+    return torch.from_numpy((-np.arange(m + 1)) % m).to(device)
+
+
 def dft_matrix(n: int, sign: int = -1, device="cpu") -> Complex:
     return _on_device(_dft_matrix_np, (n, sign), torch.device(device))
 
@@ -277,7 +285,7 @@ def rfft(x: torch.Tensor, **kw) -> Complex:
     m = n // 2
     zf = fft((x[..., 0::2], x[..., 1::2]), sign=-1, **kw)       # (..., m)
     # Z[(-k) mod m], k = 0..m  (index m wraps to 0)
-    idx = torch.from_numpy((-np.arange(m + 1)) % m).to(x.device)
+    idx = _wrap_index(m, x.device)
     zr = (zf[0][..., idx], zf[1][..., idx])
     zk = (torch.cat([zf[0], zf[0][..., :1]], -1),
           torch.cat([zf[1], zf[1][..., :1]], -1))

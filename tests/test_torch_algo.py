@@ -124,3 +124,11 @@ def test_default_factorization_equal_to_reference():
                     algo.default_factorization(n, base)
                 continue
             assert algo.default_factorization(n, base) == theirs
+
+
+def test_rfft_wrap_index_is_built_once_per_device():
+    # a fresh host-to-device copy in every rfft call would block the host on
+    # the stream, a hidden barrier in each of the variants' row tasks
+    idx = algo._wrap_index(8, torch.device("cpu"))
+    assert idx is algo._wrap_index(8, torch.device("cpu"))
+    assert idx.tolist() == [0, 7, 6, 5, 4, 3, 2, 1, 0]

@@ -17,6 +17,7 @@ from repro_torch.kernels import (complex_multiply, complex_multiply_ref,
                                  transpose_ref)
 from repro_torch.kernels.fftconv.ref import (fftconv_fused_plain,
                                              filter_spectrum_plain)
+from repro_torch.core import variants
 from repro_torch.models import FFTConvMixer
 
 pytestmark = pytest.mark.gpu
@@ -209,3 +210,36 @@ def test_kernels_and_the_mixer_refuse_autograd(cuda):
         mixer(u)
     with torch.no_grad():
         assert mixer(u).shape == u.shape
+
+
+# kernel launches of one call of each variant: the column pass is the
+# four-step kernel's; the whole-array moves are the transpose kernel's
+# (future_naive and future_opt scatter their rows with torch's copy, agas
+# gathers, strided copies its view inside the four-step op)
+VARIANT_LAUNCHES = {"for_loop": 4, "future_sync": 4, "staged": 4,
+                    "future_naive": 2, "future_opt": 2, "future_agas": 0,
+                    "strided": 0}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANT_LAUNCHES))
+def test_variants_on_the_card_match_torch_fft(cuda, name):
+    planner = Planner(backends=("hopper",))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(256, 512, device=cuda, generator=g)
+    kernels.reset_launch_counts()
+    if name == "staged":
+        out = x
+        for _, stage in variants.staged_for_loop(x, planner):
+            out = stage(out)
+    else:
+        out = variants.run_variant(name, x, planner)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["four_step_fft"] == 1
+    assert counts["batched_transpose"] == VARIANT_LAUNCHES[name]
+    ref = torch.fft.rfft2(x.double())
+    tol = 2e-4 * ref.abs().max().item()
+    assert out[0].device.type == "cuda" and out[0].shape == (256, 257)
+    assert out[0].is_contiguous() and out[1].is_contiguous()
+    assert (out[0].double() - ref.real).abs().max().item() <= tol
+    assert (out[1].double() - ref.imag).abs().max().item() <= tol
