@@ -52,7 +52,26 @@ run from the root of a checkout. Phases, each of which raises on failure:
    over the reference's task sizes, the four stages at 16384^2 alone
    against for_loop, as medians of CUDA-event timed runs (10, or 3 for the
    chunked variants) after one warm-up run with the wall time beside
-   them, then trace for_loop and future_naive (task_size 8) at 4096^2.
+   them, then trace for_loop and future_naive (task_size 8) at 4096^2;
+9. start NCCL at world size 1 on a loopback TCPStore with a (1,) "fft" and
+   a (1, 1) ("mx", "my") mesh (repro_torch.make_mesh) and run the
+   distributed layer through the hopper planner with forced
+   decompositions, each rank's block in and out (distribute, then collect):
+   slab r2c 16384^2 (rfftn/irfftn) with comm collective, pipelined:4, agas
+   and measure and with the transposed layout, pencil c2c 512^3
+   (fftn/ifftn) and factor1d c2c 2^26, each held against float64
+   torch.fft at atol = 2e-4*max|ref| and its round trip at 2e-4*max|x|,
+   with the launch counts of each run alone (four-step and transpose in
+   every run, complex_multiply in factor1d);
+10. time each forward (medians of 10 CUDA-event timed runs) beside the
+   local plan of the same shape (rfftn 16384^2, fftn 512^3; for 2^26,
+   which no local plan takes, torch.fft.fft), timed before and after, the
+   NCCL all_to_all_single call of 1 KiB at world size 1, and trace one
+   slab call; then destroy the process group;
+11. spawn 4 ranks on the one card over gloo (which takes CUDA tensors;
+   NCCL refuses two ranks on one GPU) and hold slab r2c 16384^2 on a (4,)
+   mesh and pencil c2c 512^3 on a (2, 2) mesh, forward and back, against
+   float64 torch.fft in the same way; every rank ends and is joined.
 
 The last two lines are the kernel table as one JSON object, then the card
 label, then {"ok": true, "device": {...}}. It needs one GPU and exits
@@ -107,6 +126,23 @@ VARIANT_ORDER = ("for_loop", "future_sync", "future_opt", "future_naive",
                  "future_agas", "strided")
 CHUNKED = ("future_naive", "future_opt")    # host-bound: 3 timed runs
 TASK_SIZES, TASK_SWEEP_N = (1, 2, 4, 8, 16, 64, 256), 4096
+# the distributed layer at world size 1: slab r2c 16384^2 (rfftn's shape)
+# over each exchange setting and the transposed layout, pencil c2c 512^3
+# (fftn's), factor1d c2c 2^26 (a length no local plan takes)
+DIST_SLAB_N, DIST_PENCIL_N, DIST_FACTOR1D_LOG2 = 16384, 512, 26
+DIST_SLAB_COMMS = ("collective", "pipelined:4", "agas", "measure")
+GLOO_RANKS = 4       # phase 11: ranks on the one card, over gloo
+# kernel launches of one forward and inverse of each decomposition, on every
+# rank at any p: slab and pencil those of the local rfftn + irfftn and fftn +
+# ifftn (no exchange move runs a kernel), factor1d two four-step passes
+# forward, six moves each way and one twiddle product each way
+DIST_LAUNCHES = {
+    "slab": {"four_step_fft": 1, "batched_transpose": 8,
+             "complex_multiply": 0, "fftconv_fused": 0},
+    "pencil": {"four_step_fft": 3, "batched_transpose": 16,
+               "complex_multiply": 0, "fftconv_fused": 0},
+    "factor1d": {"four_step_fft": 2, "batched_transpose": 12,
+                 "complex_multiply": 2, "fftconv_fused": 0}}
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -793,6 +829,315 @@ def phase_variant_times(label, planner, gen) -> None:
           f"{total / fused:.3f} [{label}]")
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer on NCCL at world size 1 (phases 9 and 10)
+# ---------------------------------------------------------------------------
+
+
+def start_nccl():
+    """NCCL at world size 1 on a loopback TCPStore (an OS-chosen port), and
+    the port's (1,) "fft" and (1, 1) ("mx", "my") meshes on the card."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import make_mesh
+    timeout = datetime.timedelta(seconds=120)
+    store = dist.TCPStore("127.0.0.1", 0, 1, True, timeout=timeout)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=timeout)
+    return (make_mesh((1,), ("fft",), timeout=timeout),
+            make_mesh((1, 1), ("mx", "my"), timeout=timeout), store)
+
+
+def dist_runs(planner, m1, m11) -> list:
+    """(name, plan, mesh) of every run of phases 9 and 10: forced
+    decompositions through the hopper planner."""
+    from repro_torch import plan_nd
+    s = (DIST_SLAB_N,) * 2
+    runs = [(f"slab r2c {DIST_SLAB_N}^2 comm={c}",
+             plan_nd(s, "r2c", mesh=m1, decomp="slab", comm=c,
+                     planner=planner), m1) for c in DIST_SLAB_COMMS]
+    runs.append((f"slab r2c {DIST_SLAB_N}^2 transposed",
+                 plan_nd(s, "r2c", mesh=m1, decomp="slab",
+                         output_layout="transposed", planner=planner), m1))
+    runs.append((f"pencil c2c {DIST_PENCIL_N}^3",
+                 plan_nd((DIST_PENCIL_N,) * 3, "c2c", mesh=m11,
+                         decomp="pencil", planner=planner), m11))
+    runs.append((f"factor1d c2c 2^{DIST_FACTOR1D_LOG2}",
+                 plan_nd((1 << DIST_FACTOR1D_LOG2,), "c2c", mesh=m1,
+                         decomp="factor1d", planner=planner), m1))
+    return runs
+
+
+def dist_input(decomp: str, gen):
+    """The full input of a decomposition's run (the same on every rank)."""
+    if decomp == "slab":
+        return randn((DIST_SLAB_N,) * 2, gen)
+    shape = (DIST_PENCIL_N,) * 3 if decomp == "pencil" \
+        else (1 << DIST_FACTOR1D_LOG2,)
+    return randn(shape, gen), randn(shape, gen)
+
+
+def dist_reference(nd, data):
+    """float64 torch.fft of the whole input."""
+    if nd.kind == "r2c":
+        return torch.fft.rfftn(data.double())
+    zc = torch.complex(data[0].double(), data[1].double())
+    return torch.fft.fftn(zc)
+
+
+def phase_distributed(planner, gen, m1, m11) -> dict:
+    """Every distributed run forward and back through the public entry
+    points on this rank's block, collected and held against float64
+    torch.fft; returns the launch counts of each run alone."""
+    from repro_torch import (collect, distribute, fftn, ifftn, irfftn,
+                             kernels, rfftn)
+    out, inputs, refs = {}, {}, {}
+    for name, nd, mesh in dist_runs(planner, m1, m11):
+        if nd.decomp not in inputs:
+            inputs.clear()
+            refs.clear()
+            torch.cuda.empty_cache()
+            inputs[nd.decomp] = dist_input(nd.decomp, gen)
+            refs[nd.decomp] = dist_reference(nd, inputs[nd.decomp])
+        data, ref = inputs[nd.decomp], refs[nd.decomp]
+        local = distribute(data, nd, mesh)
+        forward, inverse = (rfftn, irfftn) if nd.kind == "r2c" \
+            else (fftn, ifftn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        spec = forward(local, mesh=mesh, plan=nd, planner=planner)
+        back = inverse(spec, mesh=mesh, plan=nd, planner=planner)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = DIST_LAUNCHES[nd.decomp]
+        check(launches == want, f"{name}: launches {launches}, expected "
+              f"{want}")
+        full = collect(spec, nd, mesh)
+        check(tuple(full[0].shape) == tuple(ref.shape), f"{name}: shape "
+              f"{tuple(full[0].shape)}, want {tuple(ref.shape)}")
+        tol = 2e-4 * ref.abs().max().item()
+        err = max_err(full, ref)
+        check(err <= tol, f"{name}: err {err} > {tol}")
+        back = collect(back, nd, mesh, spatial=True)
+        if nd.kind == "r2c":
+            scale = data.abs().max().item()
+            rt = (back - data).abs().max().item()
+        else:
+            scale = max(d.abs().max().item() for d in data)
+            rt = max((b - d).abs().max().item() for b, d in zip(back, data))
+        check(rt <= 2e-4 * scale, f"{name}: round trip err {rt} > "
+              f"{2e-4 * scale}")
+        check(all(torch.isfinite(t).all().item() for t in full),
+              f"{name}: non-finite output")
+        print(f"dist {name}: comm {nd.comm}, err {err:.4e} (tol {tol:.4e}), "
+              f"round trip {rt:.3e} (tol {2e-4 * scale:.3e}); launches "
+              f"{launches}; {seconds:.3f} s incl. first calls; peak "
+              f"{peak / 2 ** 30:.2f} GiB")
+        out[name] = launches
+        del local, spec, back, full
+    del refs, inputs
+    torch.cuda.empty_cache()
+    print("dist launches " + json.dumps(out))
+    return out
+
+
+def phase_distributed_times(label, planner, gen, m1, m11) -> dict:
+    """Medians of 10 CUDA-event timed forward calls of every distributed
+    run beside the local plan of the same shape (before and after them),
+    the NCCL call cost at world size 1, and one traced slab call."""
+    import repro_torch
+    from repro_torch import distribute, fftn, rfftn
+    from repro_torch.calibrate import collective_latency
+    from repro_torch.core import dfft
+    inputs = {d: dist_input(d, gen) for d in ("slab", "pencil", "factor1d")}
+    x, z = inputs["slab"], inputs["pencil"]
+    zc = torch.complex(*inputs["factor1d"])
+    local_runs = {
+        "slab": ("local rfftn", lambda: rfftn(x, planner=planner)),
+        "pencil": ("local fftn", lambda: fftn(z, planner=planner)),
+        "factor1d": ("torch.fft.fft (no local plan: the planner splits n "
+                     "into at most three factors of at most 128)",
+                     lambda: torch.fft.fft(zc))}
+    times, base = {}, {}
+    runs = dist_runs(planner, m1, m11)
+    for name, nd, mesh in runs:
+        if nd.decomp not in base:
+            what, fn = local_runs[nd.decomp]
+            base[nd.decomp] = [time_variant(fn, 10)[0]]
+            print(f"time dist baseline {nd.decomp} {what}: "
+                  f"{base[nd.decomp][0]:.3f} ms [{label}]")
+        local = distribute(inputs[nd.decomp], nd, mesh)
+        forward = rfftn if nd.kind == "r2c" else fftn
+        ms, wall = time_variant(lambda: forward(local, mesh=mesh, plan=nd,
+                                                planner=planner), 10)
+        times[name] = ms
+        print(f"time dist {name}: {ms:.3f} ms (wall {wall:.3f} ms), "
+              f"{ms - base[nd.decomp][0]:+.3f} ms over the baseline "
+              f"[{label}]")
+        del local
+    for decomp, (what, fn) in local_runs.items():
+        again = time_variant(fn, 10)[0]
+        base[decomp].append(again)
+        print(f"time dist baseline {decomp} again: {again:.3f} ms [{label}]")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lat = statistics.median(collective_latency(dev) for _ in range(5))
+    print(f"time nccl all_to_all_single 1 KiB world size 1: "
+          f"{lat * 1e6:.2f} us a call (median of 5 runs of 200) [{label}]")
+    # the factor1d twiddle: one block built alone, and the forward call with
+    # both built anew in every call (as before they were cached)
+    twiddle = dfft._factor1d_twiddle_block
+    f_name, f_nd, f_mesh = runs[-1]
+    n1, n2 = f_nd.factors
+    tw_ms = time_variant(lambda: twiddle.__wrapped__(
+        n1, n2, 0, 1, -1, chunk_axis=1, device=dev), 10)[0]
+    f_local = distribute(inputs["factor1d"], f_nd, f_mesh)
+
+    def factor1d_uncached():
+        twiddle.cache_clear()
+        fftn(f_local, mesh=f_mesh, plan=f_nd, planner=planner)
+
+    uncached = time_variant(factor1d_uncached, 10)[0]
+    print(f"time dist factor1d twiddle block ({n1}, {n2}) alone: "
+          f"{tw_ms:.3f} ms; {f_name} with the twiddle built in every call: "
+          f"{uncached:.3f} ms, cached {times[f_name]:.3f} ms [{label}]")
+    name, nd, mesh = runs[0]
+    local = distribute(x, nd, mesh)
+    phase_profile(label, [
+        (f"dist {name}", lambda: repro_torch.rfftn(
+            local, mesh=mesh, plan=nd, planner=planner)),
+        (f"dist {f_name}", lambda: fftn(f_local, mesh=f_mesh, plan=f_nd,
+                                        planner=planner))])
+    del inputs, x, z, zc, local, f_local
+    twiddle.cache_clear()
+    torch.cuda.empty_cache()
+    return {"times": times, "baselines": base, "nccl_call_s": lat,
+            "twiddle_ms": tw_ms, "factor1d_uncached_ms": uncached}
+
+
+def gloo_rank(rank: int, store_path: str, out_path: str) -> None:
+    """gloo_rank_body, with any failure's traceback (an exit included)
+    written to ``out_path.rank<r>.err`` for phase_gloo_ranks to print."""
+    import traceback
+    try:
+        gloo_rank_body(rank, store_path, out_path)
+    except BaseException:
+        Path(f"{out_path}.rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
+    """One of GLOO_RANKS ranks on the one card, gloo carrying CUDA tensors:
+    slab r2c DIST_SLAB_N^2 over (4,) and pencil c2c DIST_PENCIL_N^3 over
+    (2, 2), forward and back, collected on every rank and held against
+    float64 torch.fft on rank 0, which writes the results to out_path."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import (Planner, collect, distribute, fftn, ifftn,
+                             irfftn, kernels, make_mesh, plan_nd, rfftn)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=300)
+    dist.init_process_group("gloo", rank=rank, world_size=GLOO_RANKS,
+                            store=dist.FileStore(store_path, GLOO_RANKS),
+                            timeout=timeout)
+    try:
+        meshes = {"(4,)": make_mesh((4,), ("fft",), timeout=timeout,
+                                    device_type="cuda"),
+                  "(2, 2)": make_mesh((2, 2), ("mx", "my"), timeout=timeout,
+                                      device_type="cuda")}
+        planner = Planner(backends=("hopper",))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        runs = [(f"slab r2c {DIST_SLAB_N}^2", "(4,)", "slab", "r2c",
+                 (DIST_SLAB_N,) * 2),
+                (f"pencil c2c {DIST_PENCIL_N}^3", "(2, 2)", "pencil", "c2c",
+                 (DIST_PENCIL_N,) * 3)]
+        out = {}
+        for name, mesh_name, decomp, kind, shape in runs:
+            mesh = meshes[mesh_name]
+            data = dist_input(decomp, gen)          # the same on every rank
+            nd = plan_nd(shape, kind, mesh=mesh, decomp=decomp,
+                         comm="collective", planner=planner)
+            local = distribute(data, nd, mesh)
+            forward, inverse = (rfftn, irfftn) if kind == "r2c" \
+                else (fftn, ifftn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            spec = forward(local, mesh=mesh, plan=nd, planner=planner)
+            back = inverse(spec, mesh=mesh, plan=nd, planner=planner)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = DIST_LAUNCHES[decomp]
+            check(launches == want, f"gloo rank {rank} {name}: launches "
+                  f"{launches}, expected {want}")
+            full = collect(spec, nd, mesh)
+            back = collect(back, nd, mesh, spatial=True)
+            if rank == 0:
+                ref = dist_reference(nd, data)
+                tol = 2e-4 * ref.abs().max().item()
+                err = max_err(full, ref)
+                check(err <= tol, f"gloo {name} on {mesh_name}: err {err} "
+                      f"> {tol}")
+                del ref
+                if kind == "r2c":
+                    scale = data.abs().max().item()
+                    rt = (back - data).abs().max().item()
+                else:
+                    scale = max(d.abs().max().item() for d in data)
+                    rt = max((b - d).abs().max().item()
+                             for b, d in zip(back, data))
+                check(rt <= 2e-4 * scale, f"gloo {name} on {mesh_name}: "
+                      f"round trip err {rt} > {2e-4 * scale}")
+                out[name] = dict(mesh=mesh_name, block=list(local.shape if
+                                 kind == "r2c" else local[0].shape),
+                                 err=err, tol=tol, round_trip=rt,
+                                 round_trip_tol=2e-4 * scale,
+                                 seconds=seconds, launches=launches,
+                                 peak_gib=peak / 2 ** 30)
+            del data, local, spec, back, full
+            torch.cuda.empty_cache()
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_gloo_ranks() -> dict:
+    """GLOO_RANKS processes on the one card over gloo (NCCL refuses two
+    ranks on one GPU), started and joined here."""
+    import tempfile
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = str(Path(tmp) / "gloo.json")
+        try:
+            mp.start_processes(gloo_rank, args=(str(Path(tmp) / "store"),
+                                                out_path),
+                               nprocs=GLOO_RANKS, start_method="spawn")
+        except Exception:
+            for err in sorted(Path(tmp).glob("gloo.json.rank*.err")):
+                print(f"phase 11 {err.name}:\n{err.read_text()}",
+                      file=sys.stderr)
+            raise
+        out = json.loads(Path(out_path).read_text())
+    for name, r in out.items():
+        print(f"gloo{GLOO_RANKS} {name} on {r['mesh']} (block "
+              f"{tuple(r['block'])} a rank): err {r['err']:.4e} (tol "
+              f"{r['tol']:.4e}), round trip {r['round_trip']:.3e} (tol "
+              f"{r['round_trip_tol']:.3e}); rank 0 launches {r['launches']},"
+              f" peak {r['peak_gib']:.2f} GiB; {r['seconds']:.3f} s forward "
+              "and back, first call")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -877,6 +1222,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"variant phases: 7 took {t7 - t0:.1f} s, 8 took "
           f"{time.perf_counter() - t7:.1f} s")
+
+    # phase 9: the distributed layer at world size 1 on NCCL, then 10: its
+    # times beside the local plans
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    m1, m11, store = start_nccl()
+    try:
+        phase_distributed(planner, gen, m1, m11)
+        t9 = time.perf_counter()
+        phase_distributed_times(label, planner, gen, m1, m11)
+    finally:
+        dist.destroy_process_group()
+        del store
+    t10 = time.perf_counter()
+
+    # phase 11: four ranks on the one card over gloo
+    phase_gloo_ranks()
+    print(f"dist phases: 9 took {t9 - t0:.1f} s, 10 took {t10 - t9:.1f} s, "
+          f"11 took {time.perf_counter() - t10:.1f} s")
 
     head = times["rfftn column pass"]
     table = {"kernels": [

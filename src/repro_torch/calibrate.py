@@ -1,22 +1,31 @@
-"""Measure the constants of the ``H100`` hardware profile on the card.
+"""Measure the constants of the hardware profiles.
 
     python -m repro_torch.calibrate
+    python -m repro_torch.calibrate --gloo
 
-prints one JSON object: the card's name and power limit (as ``nvidia-smi``
-reports them), the float32 ``torch.matmul`` rate with TF32 off (an
-8192^3 product) and the device-to-device copy rate of 1 GiB (bytes read plus
-bytes written), each the median of 10 timed runs after warm-up. These are
-the ``flops`` and ``hbm_bw`` of ``repro_torch.core.plan.H100``. Needs a GPU.
+The first prints one JSON object: the card's name and power limit (as
+``nvidia-smi`` reports them), the float32 ``torch.matmul`` rate with TF32 off
+(an 8192^3 product) and the device-to-device copy rate of 1 GiB (bytes read
+plus bytes written), each the median of 10 timed runs after warm-up, and the
+cost of one NCCL ``all_to_all_single`` call of 1 KiB at world size 1. These
+are the ``flops``, ``hbm_bw`` and ``collective_lat`` of
+``repro_torch.core.plan.H100``. It needs a GPU. With ``--gloo`` it measures
+only the call cost of gloo on the CPU, the ``collective_lat`` of
+``CPU_LOCAL``.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import statistics
 import subprocess
+import sys
+import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 
 def card_label() -> str:
@@ -70,5 +79,46 @@ def measure() -> dict:
             "copy_ms": copy_ms}
 
 
+def collective_latency(device: torch.device, group=None,
+                       reps: int = 200) -> float:
+    """Seconds per ``all_to_all_single`` call of a 1 KiB float32 message
+    over ``group`` (the default group when None): ``reps`` calls back to
+    back after 20 warm-up calls, ended by a device synchronize, over the
+    host clock. At world size 1 the call is a local copy, so this is the
+    cost a collective adds beyond its bytes."""
+    x = torch.zeros(256, device=device)
+    out = torch.empty_like(x)
+    for _ in range(20):
+        dist.all_to_all_single(out, x, group=group)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_to_all_single(out, x, group=group)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / reps
+
+
+def world_of_one_latency(backend: str) -> float:
+    """Median of 5 :func:`collective_latency` runs at world size 1 in a
+    process group of its own (an in-process store, no sockets): NCCL on
+    the current card, or gloo on the CPU."""
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if backend == "nccl" else torch.device("cpu")
+    try:
+        return statistics.median(collective_latency(device)
+                                 for _ in range(5))
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    print(json.dumps(measure()))
+    if sys.argv[1:] == ["--gloo"]:
+        print(json.dumps({"gloo_all_to_all_s": world_of_one_latency("gloo")}))
+    else:
+        print(json.dumps(dict(measure(), nccl_all_to_all_s=
+                              world_of_one_latency("nccl"))))

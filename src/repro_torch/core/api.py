@@ -1,21 +1,30 @@
 """One planned N-D transform front-end: ``plan_nd`` + the ``fftn`` family.
 
-Port of ``repro.core.api`` for one device. ``plan_nd`` scores the
-decompositions the device layout supports with the roofline of
-:mod:`repro_torch.core.plan` and returns a pure-data :class:`NdPlan`; the
-``fftn``/``ifftn``/``rfftn``/``irfftn`` conveniences execute it. On one card
-the only decomposition is ``local``: the 1D stages run axis by axis through
-``plan.execute`` (the four-step kernel under the ``hopper`` backends), with
-the tiled transpose kernel moving each axis to the end and back.
+Port of ``repro.core.api``. ``plan_nd`` scores every decomposition the
+mesh supports — ``local``, ``slab`` over one mesh axis, ``pencil`` over an
+ordered chain of 2..ndim-1 mesh axes, ``factor1d`` for one long c2c axis —
+with the roofline of :mod:`repro_torch.core.plan` and
+:mod:`repro_torch.core.comm`, and returns a pure-data :class:`NdPlan`; the
+``fftn``/``ifftn``/``rfftn``/``irfftn`` conveniences execute it. The 1D
+stages run through ``plan.execute`` (the four-step kernel under the
+``hopper`` backends), the tiled transpose kernel moves each axis to the end
+and back, and the executors of :mod:`repro_torch.core.dfft` exchange data
+over the mesh.
 
-A mesh, or a decomposition other than ``local``, raises
-``NotImplementedError``: the slab, pencil and factor1d executors need
-several ranks and come with the distributed layer. Verdicts are cached
-under the ``dfft/v2/*`` wisdom keys of the reference (pre-bump ``dfft/*``
-entries are migrated on first lookup).
+A mesh is a ``torch.distributed`` ``DeviceMesh`` (``comm.make_mesh``; one
+rank per process) or, for planning only, an abstract ``{axis: size}``
+dict. On a mesh every rank passes and gets back its own block (the layout
+convention of :mod:`repro_torch.core.dfft`): the ``fftn`` family then
+needs ``plan=`` or the global ``shape=``, returns the padded block
+uncropped, and ``dfft.collect`` gathers and crops it. ``mode="measured"``
+times the finalists on the live mesh; every rank times the same
+candidates, reduces each time with MAX over the mesh and takes the same
+argmin. Verdicts are cached under the reference's ``dfft/v2/*`` wisdom keys
+(pre-bump ``dfft/*`` entries are migrated on first lookup).
 
 Device policy: ``device=None`` means the GPU and raises without one; pass
-``device="cpu"`` to run the plain PyTorch versions on the CPU.
+``device="cpu"`` to run the plain PyTorch versions on the CPU. On a live
+mesh the device is the mesh's (CUDA under NCCL, the CPU under gloo).
 """
 
 from __future__ import annotations
@@ -25,24 +34,29 @@ import itertools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import algo, dfft
-from .comm import fac_sum, pad_to
+from .comm import (_normalize_axis_specs, fac_sum, is_mesh_leader,
+                   measure_comm_factor1d, measure_comm_pencil_nd,
+                   measure_comm_slab_nd, mesh_device, mesh_sizes, pad_to,
+                   plan_comm_factor1d, plan_comm_pencil_nd, plan_comm_slab_nd,
+                   time_on_mesh)
+from .fftconv import factor_split
 from .plan import Planner, execute, execute_inverse, resolve_device
 
 Complex = algo.Complex
 
 __all__ = ["NdPlan", "plan_nd", "execute_nd", "execute_nd_inverse",
-           "fftn", "ifftn", "rfftn", "irfftn", "COLLECTIVE_LAT"]
+           "fftn", "ifftn", "rfftn", "irfftn", "PLAN_ND_STATS"]
 
 DECOMPS = ("local", "slab", "pencil", "factor1d")
 OUTPUT_LAYOUTS = ("natural", "transposed")
 
-#: per-collective latency charge in the decomposition roofline (seconds).
-COLLECTIVE_LAT = 2e-5
-
-_LATER = "distributed decompositions: later slice"
+#: whole-transform timing probes actually executed by ``mode="measured"``;
+#: tests snapshot this to prove wisdom hits re-measure nothing.
+PLAN_ND_STATS = {"timed": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +141,8 @@ class NdPlan:
 def _estimate_nd(plan: NdPlan, hw, on_mesh: bool) -> float:
     """Roofline seconds for one execution of ``plan`` on ``hw``: per-device
     compute is max(flops, HBM passes), each redistribution charges its wire
-    bytes through one link plus ``COLLECTIVE_LAT``, and a local plan on a
-    mesh charges one gather of the whole array."""
+    bytes through one link plus ``hw.collective_lat``, and a local plan on
+    a mesh charges one gather of the whole array."""
     d = len(plan.shape)
     padded = plan.padded_spectrum_shape
     elems = float(math.prod(padded))
@@ -142,35 +156,34 @@ def _estimate_nd(plan: NdPlan, hw, on_mesh: bool) -> float:
     t_comp = max(flops / hw.flops,
                  (d + 1) * bytes_pair / hw.hbm_bw) / devices
     t_comm = 0.0
+    lat = hw.collective_lat
     if plan.decomp == "local":
         if on_mesh:
-            t_comm = bytes_pair / hw.link_bw + COLLECTIVE_LAT
+            t_comm = bytes_pair / hw.link_bw + lat
     elif plan.decomp == "slab":
         (p,) = plan.mesh_shape
         wire = (p - 1) / p * (bytes_pair / p)
         # a transposed output layout skips the restore exchange entirely
         n_exchanges = 1.0 if plan.output_layout == "transposed" else 2.0
-        t_comm = n_exchanges * (wire / hw.link_bw + COLLECTIVE_LAT)
+        t_comm = n_exchanges * (wire / hw.link_bw + lat)
     elif plan.decomp == "factor1d":
         (p,) = plan.mesh_shape
         wire = (p - 1) / p * (bytes_pair / p)
         # stage A + stage B + the natural-order unpermute
-        t_comm = 3.0 * (wire / hw.link_bw + COLLECTIVE_LAT)
+        t_comm = 3.0 * (wire / hw.link_bw + lat)
     else:                                          # pencil
         for p in plan.mesh_shape:
             if p <= 1:
                 continue
             wire = (p - 1) / p * (bytes_pair / devices)
-            t_comm += wire / hw.link_bw + COLLECTIVE_LAT
+            t_comm += wire / hw.link_bw + lat
     return t_comp + t_comm
 
 
 def _candidates(shape, kind, sizes,
                 output_layout: str = "natural"
                 ) -> Sequence[Tuple[str, Tuple[str, ...]]]:
-    """(decomp, mesh_axes) candidates for a ``{mesh axis: size}`` layout.
-    The factor1d candidates come with the distributed layer's factor
-    split."""
+    """(decomp, mesh_axes) candidates for a ``{mesh axis: size}`` layout."""
     d = len(shape)
     live = [a for a, p in sizes.items() if p > 1]
     cands = [("local", ())]
@@ -181,7 +194,83 @@ def _candidates(shape, kind, sizes,
         for k in range(2, min(d - 1, len(live)) + 1):
             cands += [("pencil", axes)
                       for axes in itertools.permutations(live, k)]
+    if d == 1 and kind == "c2c" and output_layout == "natural":
+        # distributed 1D through the fft_conv factor split (three
+        # exchanges; output is natural-order, so no transposed layout)
+        cands += [("factor1d", (a,)) for a in live
+                  if factor_split(shape[0], sizes[a]) is not None]
     return cands
+
+
+def _mesh_axis_sizes(mesh, axes) -> "dict[str, int]":
+    """Accepts a live ``DeviceMesh`` OR an abstract ``{name: size}``
+    mapping (estimate-only planning without ranks)."""
+    if mesh is None:
+        return {}
+    sizes = dict(mesh) if isinstance(mesh, dict) else mesh_sizes(mesh)
+    if axes is not None:
+        sizes = {a: sizes[a] for a in axes}
+    return sizes
+
+
+def _plan_factors(decomp: str, shape, mesh_axes, sizes) -> Tuple[int, ...]:
+    """The (n1, n2) split a ``factor1d`` candidate executes; () otherwise."""
+    if decomp != "factor1d":
+        return ()
+    split = factor_split(shape[0], sizes[mesh_axes[0]])
+    if split is None:
+        raise ValueError(
+            f"no factor split of n={shape[0]} over p={sizes[mesh_axes[0]]} "
+            "(need n divisible by p**2 with factorizable factors)")
+    return split
+
+
+def _resolve_comm(decomp, mesh_axes, shape, kind, comm, mesh, sizes,
+                  planner, factors=()) -> Tuple:
+    """Turn the user's ``comm`` argument into one concrete spec per mesh
+    axis. ``"auto"`` entries go through the roofline planners,
+    ``"measure"`` entries through the on-mesh autotuners (live mesh only);
+    explicit names / CommBackend instances / per-axis collections pass
+    through."""
+    if decomp == "local":
+        return ()
+    live = mesh is not None and not isinstance(mesh, dict)
+    specs = list(_normalize_axis_specs(comm, mesh_axes))
+    hw = planner.hw
+    if decomp in ("slab", "factor1d"):
+        (a,) = mesh_axes
+        if specs[0] == "auto":
+            if decomp == "factor1d":
+                specs[0] = plan_comm_factor1d(shape[0], factors[0],
+                                              factors[1], sizes[a], hw=hw)
+            else:
+                specs[0] = plan_comm_slab_nd(shape, sizes[a], hw=hw,
+                                             kind=kind)
+        elif specs[0] == "measure":
+            if not live:
+                raise ValueError('comm="measure" needs a live mesh')
+            if decomp == "factor1d":
+                specs[0] = measure_comm_factor1d(shape[0], tuple(factors),
+                                                 mesh, a,
+                                                 wisdom=planner.wisdom, hw=hw)
+            else:
+                specs[0] = measure_comm_slab_nd(shape, mesh, a, kind=kind,
+                                                wisdom=planner.wisdom, hw=hw)
+        return tuple(specs)
+    # pencil: plan/measure per mesh axis, only the axes that ask
+    if "auto" in specs:
+        ps = tuple(sizes[a] for a in mesh_axes)
+        planned = plan_comm_pencil_nd(shape, ps, hw=hw, kind=kind)
+        specs = [planned[i] if s == "auto" else s for i, s in enumerate(specs)]
+    if "measure" in specs:
+        if not live:
+            raise ValueError('comm="measure" needs a live mesh')
+        measured = measure_comm_pencil_nd(
+            tuple(shape), mesh, mesh_axes, kind=kind, wisdom=planner.wisdom,
+            which=tuple(s == "measure" for s in specs), hw=hw)
+        specs = [measured[i] if s == "measure" else s
+                 for i, s in enumerate(specs)]
+    return tuple(specs)
 
 
 # ---------------------------------------------------------------------------
@@ -189,25 +278,32 @@ def _candidates(shape, kind, sizes,
 # ---------------------------------------------------------------------------
 
 
-def _check_local(mesh, decomp) -> None:
-    if mesh is not None or decomp not in (None, "local"):
-        raise NotImplementedError(_LATER)
-
-
 def plan_nd(shape: Sequence[int], kind: str = "c2c", mesh=None,
             axes: Optional[Sequence[str]] = None, mode: str = "estimate",
             comm="auto", planner: Optional[Planner] = None,
             decomp: Optional[str] = None,
             output_layout: str = "natural", device=None) -> NdPlan:
-    """Plan one N-D transform and return the :class:`NdPlan`.
+    """Plan one N-D transform: pick the decomposition, the mesh-axis
+    assignment, and the exchange backends; return the :class:`NdPlan`.
 
     ``shape``: transform shape (trailing axes; leading input axes are
     batch).  ``kind``: ``"c2c"`` or ``"r2c"`` (the plan serves the inverse
-    too).  ``mesh`` must be None in this package so far (one device).
-    ``mode="measured"`` times the finalists on ``device`` (None: the GPU,
-    which must exist); with one device ``local`` is the only candidate, so
-    nothing needs timing.  The verdict is cached under a ``dfft/v2/*``
-    wisdom key (pre-bump ``dfft/*`` entries are migrated on first lookup).
+    too).  ``mesh``: a live ``DeviceMesh``, an abstract ``{axis: size}``
+    mapping (estimate-only), or None for one device.  ``axes`` restricts
+    which mesh axes the planner may use.
+
+    ``mode="estimate"`` scores candidates with the roofline model;
+    ``mode="measured"`` also times the finalists on the live mesh (every
+    rank must call it). Without a live mesh ``local`` is the only
+    candidate and nothing is timed, but ``device`` (None: the GPU) must
+    exist.  ``comm`` is a backend name/instance, ``"auto"``,
+    ``"measure"``, or a per-mesh-axis collection for pencil.
+
+    ``output_layout="transposed"`` plans for a spectrum sharded over the
+    last transform axis (slab saves its restore exchange).  ``decomp``
+    forces a decomposition; the verdict of a free choice is cached under a
+    ``dfft/v2/*`` wisdom key (pre-bump ``dfft/*`` entries are migrated on
+    first lookup), which only the mesh's rank 0 writes to the file.
     """
     shape = tuple(int(n) for n in shape)
     if kind not in ("c2c", "r2c"):
@@ -216,22 +312,55 @@ def plan_nd(shape: Sequence[int], kind: str = "c2c", mesh=None,
         raise ValueError(f"mode must be estimate or measured: {mode!r}")
     if output_layout not in OUTPUT_LAYOUTS:
         raise ValueError(f"output_layout must be one of {OUTPUT_LAYOUTS}")
-    _check_local(mesh, decomp)
-    if mode == "measured":
+    live = mesh is not None and not isinstance(mesh, dict)
+    if mode == "measured" and not live:
         resolve_device(device)
     planner = planner or Planner(backends=("torch",))
-    sizes: dict = {}
+    sizes = _mesh_axis_sizes(mesh, axes)
+    persist = not live or is_mesh_leader(mesh)
+
+    def build(dec, mesh_axes, est=0.0, measured=-1.0, comm_arg=None):
+        factors = _plan_factors(dec, shape, mesh_axes, sizes)
+        return NdPlan(
+            shape, kind, dec, tuple(mesh_axes),
+            tuple(sizes[a] for a in mesh_axes),
+            _resolve_comm(dec, tuple(mesh_axes), shape, kind,
+                          comm if comm_arg is None else comm_arg, mesh,
+                          sizes, planner, factors=factors),
+            mode, est, measured, output_layout, factors)
 
     if decomp is not None:              # forced
-        nd = NdPlan(shape, kind, "local", mode=mode,
-                    output_layout=output_layout)
+        if decomp not in DECOMPS:
+            raise ValueError(f"decomp must be one of {DECOMPS}: {decomp!r}")
+        if decomp == "factor1d" and output_layout == "transposed":
+            raise ValueError("factor1d output is natural-order only")
+        if decomp == "slab" and len(shape) < 2:
+            raise ValueError("slab decomposition needs ndim >= 2")
+        if decomp == "factor1d" and (len(shape) != 1 or kind != "c2c"):
+            raise ValueError("factor1d is the 1D c2c decomposition")
+        if decomp == "local":
+            mesh_axes = ()
+        elif axes is not None:
+            mesh_axes = tuple(axes)
+        else:
+            width = 1 if decomp in ("slab", "factor1d") else \
+                min(len(sizes), len(shape) - 1)
+            mesh_axes = tuple(list(sizes)[:width])
+        if decomp in ("slab", "factor1d") and len(mesh_axes) != 1:
+            raise ValueError(f"{decomp} needs one mesh axis, got "
+                             f"{mesh_axes}")
+        if decomp == "pencil" and not 2 <= len(mesh_axes) <= len(shape) - 1:
+            raise ValueError(
+                f"pencil needs 2..ndim-1 mesh axes, got {mesh_axes} for "
+                f"ndim={len(shape)}")
+        nd = build(decomp, mesh_axes)
         return dataclasses.replace(
-            nd, est_cost=_estimate_nd(nd, planner.hw, on_mesh=False))
+            nd, est_cost=_estimate_nd(nd, planner.hw, on_mesh=bool(sizes)))
 
     key = None
     tag = _comm_tag(comm)
     if tag is not None:
-        mesh_tag = "none"               # one device: no mesh axes
+        mesh_tag = ".".join(f"{a}{p}" for a, p in sizes.items()) or "none"
         key = (f"dfft/v2/{'x'.join(str(n) for n in shape)}/{kind}/"
                f"{mesh_tag}/{mode}/{tag}/{output_layout}")
         hit = planner.wisdom.get(key)
@@ -239,7 +368,7 @@ def plan_nd(shape: Sequence[int], kind: str = "c2c", mesh=None,
             hit = None                  # corrupt v2 record: re-plan
         if hit is None and output_layout == "natural":
             hit = _migrate_v1_verdict(planner, shape, kind, mesh_tag, mode,
-                                      tag, key)
+                                      tag, key, persist)
         if hit is not None:
             return NdPlan(shape, kind, hit["decomp"],
                           tuple(hit["mesh_axes"]), tuple(hit["mesh_shape"]),
@@ -252,19 +381,30 @@ def plan_nd(shape: Sequence[int], kind: str = "c2c", mesh=None,
     for dec, mesh_axes in _candidates(shape, kind, sizes, output_layout):
         nd = NdPlan(shape, kind, dec, mesh_axes,
                     tuple(sizes[a] for a in mesh_axes), (), mode,
-                    output_layout=output_layout)
-        scored.append((_estimate_nd(nd, planner.hw, on_mesh=False), nd))
+                    output_layout=output_layout,
+                    factors=_plan_factors(dec, shape, mesh_axes, sizes))
+        scored.append((_estimate_nd(nd, planner.hw, on_mesh=bool(sizes)),
+                       nd))
     scored.sort(key=lambda t: t[0])
-    est, nd = scored[0]
-    best = dataclasses.replace(nd, est_cost=est)
 
-    if key is not None:
+    if mode == "measured" and live and len(scored) > 1:
+        # measured mode prices every finalist with its best exchange:
+        # "auto" comm upgrades to the on-mesh measure_comm_* autotuners
+        m_comm = "measure" if comm == "auto" else comm
+        best = _measure_finalists(scored, mesh, planner,
+                                  lambda dec, axes_, est: build(
+                                      dec, axes_, est=est, comm_arg=m_comm))
+    else:
+        est, nd = scored[0]
+        best = build(nd.decomp, nd.mesh_axes, est=est)
+
+    if key is not None and _comm_tag(best.comm) is not None:
         planner.wisdom.put(key, {
             "decomp": best.decomp, "mesh_axes": list(best.mesh_axes),
             "mesh_shape": list(best.mesh_shape), "comm": list(best.comm),
             "est": best.est_cost, "measured": best.measured_cost,
             "output_layout": best.output_layout,
-            "factors": list(best.factors)})
+            "factors": list(best.factors)}, persist=persist)
     return best
 
 
@@ -293,7 +433,7 @@ def _valid_verdict(rec) -> bool:
 
 
 def _migrate_v1_verdict(planner, shape, kind, mesh_tag, mode, tag,
-                        v2_key) -> Optional[dict]:
+                        v2_key, persist: bool = True) -> Optional[dict]:
     """Adopt a pre-bump ``dfft/*`` (v1) wisdom verdict for a natural-layout
     lookup (a v1 record is a v2 natural-layout record with the new fields
     defaulted) and re-write it under the v2 key."""
@@ -308,8 +448,39 @@ def _migrate_v1_verdict(planner, shape, kind, mesh_tag, mode, tag,
     rec = dict(old)
     rec.setdefault("output_layout", "natural")
     rec.setdefault("factors", [])
-    planner.wisdom.put(v2_key, rec)
+    planner.wisdom.put(v2_key, rec, persist=persist)
     return rec
+
+
+def _probe(nd, dev: torch.device):
+    """Seeded input for timing ``nd``: this rank's block of the padded
+    input (a real tensor for r2c, a pair for c2c), the same on every
+    rank."""
+    rng = np.random.default_rng(0)
+    shape = dfft.block_shape(nd, spectrum=False)
+    parts = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             .to(dev) for _ in range(1 if nd.kind == "r2c" else 2)]
+    return parts[0] if nd.kind == "r2c" else tuple(parts)
+
+
+def _measure_finalists(scored, mesh, planner, build) -> NdPlan:
+    """FFTW MEASURE over decompositions: run the forward transform of each
+    of the roofline's top three finalists on the live mesh and keep the
+    fastest. Each finalist's exchanges resolve through the comm autotuners
+    first. Every rank times the same finalists in the same order and the
+    times are the mesh's MAX, so every rank keeps the same plan; a finalist
+    that fails raises."""
+    dev = mesh_device(mesh)
+    best, best_t = None, float("inf")
+    for est, cand in scored[:3]:
+        nd = build(cand.decomp, cand.mesh_axes, est)
+        probe = _probe(nd, dev)
+        dt = time_on_mesh(lambda: execute_nd(nd, probe, mesh=mesh,
+                                             planner=planner), mesh, reps=3)
+        PLAN_ND_STATS["timed"] += 1
+        if dt < best_t:
+            best, best_t = nd, dt
+    return dataclasses.replace(best, measured_cost=best_t)
 
 
 # ---------------------------------------------------------------------------
@@ -317,20 +488,45 @@ def _migrate_v1_verdict(planner, shape, kind, mesh_tag, mode, tag,
 # ---------------------------------------------------------------------------
 
 
-def execute_nd(plan: NdPlan, x, mesh=None, planner: Optional[Planner] = None):
+def execute_nd(plan: NdPlan, x, mesh=None, planner: Optional[Planner] = None,
+               chunks: int = 4):
     """Run ``plan`` forward.  ``x``: real tensor for r2c, (re, im) pair for
-    c2c (leading batch dims welcome).  Returns the spectrum pair."""
-    _check_local(mesh, plan.decomp)
-    return _execute_local(plan, x, planner or Planner(backends=("torch",)))
+    c2c (leading batch dims welcome); on a mesh, this rank's block of the
+    padded input.  Returns the PADDED spectrum pair (on a mesh, this rank's
+    block of it): crop with ``plan.crop_pair``, or gather and crop with
+    ``dfft.collect``, for the exact transform."""
+    planner = planner or Planner(backends=("torch",))
+    if plan.decomp == "local":
+        dfft._check_block(plan, x if plan.kind == "r2c" else x[0],
+                          spectrum=False)
+        return _execute_local(plan, x, planner)
+    if mesh is None or isinstance(mesh, dict):
+        raise ValueError(f"a {plan.decomp} plan runs on a live DeviceMesh")
+    if plan.decomp == "slab":
+        return dfft.execute_slab(plan, x, mesh, planner, chunks=chunks)
+    if plan.decomp == "factor1d":
+        return dfft.execute_factor1d(plan, x, mesh, planner, chunks=chunks)
+    return dfft.execute_pencil(plan, x, mesh, planner, chunks=chunks)
 
 
 def execute_nd_inverse(plan: NdPlan, c: Complex, mesh=None,
-                       planner: Optional[Planner] = None):
-    """Run ``plan`` backward from the spectrum pair.  Returns a pair for
-    c2c, a real tensor for r2c."""
-    _check_local(mesh, plan.decomp)
-    return _execute_local_inverse(plan, c,
-                                  planner or Planner(backends=("torch",)))
+                       planner: Optional[Planner] = None, chunks: int = 4):
+    """Run ``plan`` backward from the PADDED spectrum pair (on a mesh, this
+    rank's block of it).  Returns a pair for c2c, a real tensor for r2c;
+    sharded axes keep their divisibility padding."""
+    planner = planner or Planner(backends=("torch",))
+    if plan.decomp == "local":
+        dfft._check_block(plan, c[0], spectrum=True)
+        return _execute_local_inverse(plan, c, planner)
+    if mesh is None or isinstance(mesh, dict):
+        raise ValueError(f"a {plan.decomp} plan runs on a live DeviceMesh")
+    if plan.decomp == "slab":
+        return dfft.execute_slab_inverse(plan, c, mesh, planner,
+                                         chunks=chunks)
+    if plan.decomp == "factor1d":
+        return dfft.execute_factor1d_inverse(plan, c, mesh, planner,
+                                             chunks=chunks)
+    return dfft.execute_pencil_inverse(plan, c, mesh, planner, chunks=chunks)
 
 
 def _execute_local(plan: NdPlan, x, planner: Planner):
@@ -376,13 +572,6 @@ def _as_pair(x, device: torch.device) -> Complex:
     return x, torch.zeros_like(x)
 
 
-def _transform_ndim(x, ndim, plan) -> int:
-    if plan is not None:
-        return len(plan.shape)
-    arr = x[0] if isinstance(x, (tuple, list)) else x
-    return arr.dim() if ndim is None else ndim
-
-
 def _pad_spectrum(c: Complex, plan: NdPlan) -> Complex:
     """Zero-pad an exact spectrum pair back to the executor's padded layout
     (the padded bands are zero by construction, so this is lossless)."""
@@ -407,74 +596,121 @@ def _crop_spatial(y, plan: NdPlan, pair: bool):
     return y
 
 
+def _placement(mesh, device) -> Tuple[torch.device, bool]:
+    """(device, whether ``mesh`` is live). On a live mesh the tensors live
+    on the mesh's device, and a ``device`` of another type raises."""
+    if mesh is None or isinstance(mesh, dict):
+        return resolve_device(device), False
+    dev = mesh_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"the mesh runs on {dev.type}, not {device}")
+    return dev, True
+
+
+def _plan_shape(arr: torch.Tensor, ndim, shape, live: bool):
+    """The transform shape to plan: ``shape``, or the trailing ``ndim``
+    axes of a whole array. A rank's block does not carry the padding, so
+    on a live mesh ``shape`` (or ``plan=``) is required."""
+    if shape is not None:
+        return tuple(int(n) for n in shape)
+    if live:
+        raise ValueError("on a mesh each rank holds a block, which does not "
+                         "carry the padding: pass plan= or the global "
+                         "transform shape=")
+    d = arr.dim() if ndim is None else ndim
+    return tuple(arr.shape[arr.dim() - d:])
+
+
 def fftn(x, mesh=None, axes=None, planner: Optional[Planner] = None,
          comm="auto", mode: str = "estimate", ndim: Optional[int] = None,
          plan: Optional[NdPlan] = None, output_layout: str = "natural",
-         device=None) -> Complex:
+         device=None, shape: Optional[Sequence[int]] = None,
+         chunks: int = 4) -> Complex:
     """N-D c2c FFT matching ``numpy.fft.fftn`` over the trailing ``ndim``
     axes (default: all).  ``x``: complex array/tensor or (re, im) pair;
     leading axes beyond ``ndim`` are batch.  Runs on ``device`` (None: the
-    GPU).  Returns an (re, im) float32 pair with the exact numpy shape."""
-    dev = resolve_device(device)
+    GPU).  Returns an (re, im) float32 pair with the exact numpy shape.
+
+    On a live mesh ``x`` is this rank's block of the padded input, the
+    plan comes from ``plan=`` or the global transform ``shape=``, and the
+    result is this rank's block of the padded spectrum
+    (``dfft.collect`` gathers and crops it)."""
+    dev, live = _placement(mesh, device)
     c = _as_pair(x, dev)
-    d = _transform_ndim(c, ndim, plan)
-    plan = plan or plan_nd(c[0].shape[c[0].dim() - d:], "c2c", mesh=mesh,
-                           axes=axes, mode=mode, comm=comm, planner=planner,
-                           output_layout=output_layout, device=dev)
-    out = execute_nd(plan, c, mesh=mesh, planner=planner)
-    return plan.crop_pair(out)
+    plan = plan or plan_nd(_plan_shape(c[0], ndim, shape, live), "c2c",
+                           mesh=mesh, axes=axes, mode=mode, comm=comm,
+                           planner=planner, output_layout=output_layout,
+                           device=dev)
+    out = execute_nd(plan, c, mesh=mesh, planner=planner, chunks=chunks)
+    return out if live else plan.crop_pair(out)
 
 
 def ifftn(x, mesh=None, axes=None, planner: Optional[Planner] = None,
           comm="auto", mode: str = "estimate", ndim: Optional[int] = None,
           plan: Optional[NdPlan] = None, output_layout: str = "natural",
-          device=None) -> Complex:
-    """Inverse of :func:`fftn` (matches ``numpy.fft.ifftn``)."""
-    dev = resolve_device(device)
+          device=None, shape: Optional[Sequence[int]] = None,
+          chunks: int = 4) -> Complex:
+    """Inverse of :func:`fftn` (matches ``numpy.fft.ifftn``). On a live
+    mesh ``x`` is this rank's block of the padded spectrum and the result
+    its block of the padded input."""
+    dev, live = _placement(mesh, device)
     c = _as_pair(x, dev)
-    d = _transform_ndim(c, ndim, plan)
-    plan = plan or plan_nd(c[0].shape[c[0].dim() - d:], "c2c", mesh=mesh,
-                           axes=axes, mode=mode, comm=comm, planner=planner,
-                           output_layout=output_layout, device=dev)
+    plan = plan or plan_nd(_plan_shape(c[0], ndim, shape, live), "c2c",
+                           mesh=mesh, axes=axes, mode=mode, comm=comm,
+                           planner=planner, output_layout=output_layout,
+                           device=dev)
+    if live:
+        return execute_nd_inverse(plan, c, mesh=mesh, planner=planner,
+                                  chunks=chunks)
     c = _pad_spectrum(c, plan)
-    y = execute_nd_inverse(plan, c, mesh=mesh, planner=planner)
+    y = execute_nd_inverse(plan, c, mesh=mesh, planner=planner,
+                           chunks=chunks)
     return _crop_spatial(y, plan, pair=True)
 
 
 def rfftn(x, mesh=None, axes=None, planner: Optional[Planner] = None,
           comm="auto", mode: str = "estimate", ndim: Optional[int] = None,
           plan: Optional[NdPlan] = None, output_layout: str = "natural",
-          device=None) -> Complex:
+          device=None, shape: Optional[Sequence[int]] = None,
+          chunks: int = 4) -> Complex:
     """N-D r2c FFT matching ``numpy.fft.rfftn`` over the trailing ``ndim``
     axes of a real array (odd last-axis lengths included).  Returns the
-    exact half-spectrum pair."""
-    dev = resolve_device(device)
+    exact half-spectrum pair; on a live mesh, as :func:`fftn`, this rank's
+    block of the padded half spectrum."""
+    dev, live = _placement(mesh, device)
     x = _as_real(x, dev)
-    d = _transform_ndim(x, ndim, plan)
-    plan = plan or plan_nd(x.shape[x.dim() - d:], "r2c", mesh=mesh,
-                           axes=axes, mode=mode, comm=comm, planner=planner,
-                           output_layout=output_layout, device=dev)
-    out = execute_nd(plan, x, mesh=mesh, planner=planner)
-    return plan.crop_pair(out)
+    plan = plan or plan_nd(_plan_shape(x, ndim, shape, live), "r2c",
+                           mesh=mesh, axes=axes, mode=mode, comm=comm,
+                           planner=planner, output_layout=output_layout,
+                           device=dev)
+    out = execute_nd(plan, x, mesh=mesh, planner=planner, chunks=chunks)
+    return out if live else plan.crop_pair(out)
 
 
 def irfftn(x, shape: Optional[Sequence[int]] = None, mesh=None, axes=None,
            planner: Optional[Planner] = None, comm="auto",
            mode: str = "estimate", plan: Optional[NdPlan] = None,
-           output_layout: str = "natural", device=None) -> torch.Tensor:
+           output_layout: str = "natural", device=None,
+           chunks: int = 4) -> torch.Tensor:
     """Inverse of :func:`rfftn` back to a real tensor (matches
     ``numpy.fft.irfftn``).  ``shape`` is the spatial transform shape; when
     omitted the last axis is assumed even (``2 * (mh - 1)``), exactly
-    numpy's convention."""
-    dev = resolve_device(device)
+    numpy's convention. On a live mesh ``x`` is this rank's block of the
+    padded half spectrum, ``shape`` (or ``plan=``) is required, and the
+    result is this rank's block of the padded input."""
+    dev, live = _placement(mesh, device)
     c = _as_pair(x, dev)
     if plan is None:
-        if shape is None:       # no batch dims: every input axis transforms
+        if shape is None and not live:  # no batch dims: every axis transforms
             shape = tuple(c[0].shape[:-1]) + (2 * (c[0].shape[-1] - 1),)
-        shape = tuple(int(n) for n in shape)
-        plan = plan_nd(shape, "r2c", mesh=mesh, axes=axes, mode=mode,
-                       comm=comm, planner=planner,
-                       output_layout=output_layout, device=dev)
+        plan = plan_nd(_plan_shape(c[0], None, shape, live), "r2c",
+                       mesh=mesh, axes=axes, mode=mode, comm=comm,
+                       planner=planner, output_layout=output_layout,
+                       device=dev)
+    if live:
+        return execute_nd_inverse(plan, c, mesh=mesh, planner=planner,
+                                  chunks=chunks)
     c = _pad_spectrum(c, plan)
-    y = execute_nd_inverse(plan, c, mesh=mesh, planner=planner)
+    y = execute_nd_inverse(plan, c, mesh=mesh, planner=planner,
+                           chunks=chunks)
     return _crop_spatial(y, plan, pair=False)

@@ -1,14 +1,75 @@
-"""Exchange arithmetic shared by the planner and the executors.
+"""Communication backends for distributed-FFT redistributions (paper §5.3).
 
-Port of the single-card part of ``repro.core.comm``: the padding rules that
-``NdPlan`` and the pad-and-crop layer use, and the per-element four-step
-cost of the N-D roofline. The exchange backends, their planners and
-autotuners need several ranks and come with the distributed layer.
+Port of ``repro.core.comm`` onto ``torch.distributed``: NCCL for CUDA
+tensors, gloo for CPU tensors, each process one rank. A reference
+``jax.sharding.Mesh`` becomes a ``torch.distributed.device_mesh.DeviceMesh``
+(:func:`make_mesh`): its ``mesh_dim_names`` are the reference's axis names,
+each axis's process group is ``mesh.get_group(name)``, ``axis_index`` is
+``mesh.get_local_rank(name)``. Every group :func:`make_mesh` creates has a
+timeout, so a rank that raises cannot leave the others blocked for ever.
+
+Backends (paper §5.3, Fig. 6), one collective per member of an (re, im)
+pair as in the reference:
+
+* ``collective`` — one ``all_to_all_single`` per redistribution.
+* ``pipelined`` — the redistribution split into chunks, each chunk's
+  collectives issued with ``async_op=True``; all are waited on before the
+  chunks are put together. Same bytes on the wire; ``"pipelined:8"`` sets
+  the chunk count inline.
+* ``agas`` — all-gather-then-slice: every rank gathers the full ``concat``
+  axis and keeps its block by its rank (the redundant data movement of
+  implicit AGAS addressing, implemented to be measured, not used).
+
+An exchange is the reference's tiled all_to_all: "split axis ``split`` into
+the ``p`` ranks of the group, send block d to rank d, concatenate the
+received blocks along ``concat``". ``all_to_all_single`` sends the blocks
+of dimension 0 of one contiguous buffer, so each exchange makes two moves:
+
+* **pack** — the p-block axis of ``split`` moved to the front of a
+  contiguous buffer;
+* **unpack** — the received leading p axis merged into ``concat``.
+
+A move is skipped where its axis already leads (nothing before it, or p ==
+1); any other is one ``.contiguous()`` copy. No move is a scalar transpose
+(each moved block is ``w`` rows of every trailing axis), so the transpose
+kernel has no part in them. NCCL is handed contiguous buffers only.
+
+Planning, in both of the paper's modes:
+
+* ESTIMATE — ``plan_comm*`` pick a backend from the roofline (pure
+  arithmetic; the default profile is ``H100``).
+* MEASURE — the ``measure_comm*`` family times every candidate on the live
+  mesh. Under SPMD every rank runs the same candidates in the same order
+  after a barrier, each time is reduced with MAX over the mesh (a
+  collective lasts as long as its slowest rank), and every rank takes the
+  same argmin, so no two ranks can pick differently. A candidate that
+  fails raises. Verdicts go to the wisdom store under the reference's
+  ``comm/*`` keys with the hardware tag of the ``plan/*`` keys appended;
+  every rank keeps them, only the mesh's rank 0 writes the file. Every
+  rank must read the same wisdom: a rank that finds a verdict skips the
+  sweep its peers run, and they wait for it until the group timeout.
 """
 
 from __future__ import annotations
 
+import datetime
+import math
+import time
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
 from . import algo
+from .wisdom import WisdomStore
+
+Complex = algo.Complex
+
+COMM_BACKENDS = ("collective", "pipelined", "agas")
+
+#: timeout of every process group :func:`make_mesh` creates
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 
 
 def pad_to(n: int, p: int) -> int:
@@ -21,11 +82,719 @@ def padded_half(m: int, p: int) -> int:
     return pad_to(m // 2 + 1, p)
 
 
+# ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str],
+              timeout: datetime.timedelta = GROUP_TIMEOUT,
+              ranks: Optional[Sequence[int]] = None,
+              device_type: Optional[str] = None):
+    """A ``DeviceMesh``, the counterpart of ``jax.make_mesh(shape, names)``:
+    ``ranks`` (default: every rank of the default process group) laid out
+    row-major over ``shape``, each axis's groups created here with
+    ``timeout``. The device is CUDA under NCCL and the CPU under gloo,
+    unless ``device_type="cuda"`` asks gloo to carry CUDA tensors (staged
+    through host memory; several ranks on one card, which NCCL refuses).
+    Every rank of the default group must call it with the same arguments;
+    a rank outside ``ranks`` gets None."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in "
+                         "length")
+    members = list(range(dist.get_world_size()) if ranks is None else ranks)
+    if math.prod(shape) != len(members):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, got "
+                         f"{len(members)}")
+    if members != sorted(set(members)):
+        # a group numbers its ranks in ascending order: coordinates must too
+        raise ValueError(f"mesh ranks must ascend, got {members}")
+    backend = dist.get_backend()
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"the mesh runs on nccl or gloo, not {backend}")
+    if device_type is None:
+        device_type = "cuda" if backend == "nccl" else "cpu"
+    elif (backend, device_type) not in (("nccl", "cuda"), ("gloo", "cpu"),
+                                        ("gloo", "cuda")):
+        raise ValueError(f"{backend} does not carry {device_type} tensors")
+    rank = dist.get_rank()
+    layout = torch.tensor(members).reshape(shape)
+    groups = []
+    for dim, size in enumerate(shape):
+        mine = None
+        # every rank creates every group of the axis, in one order
+        for row in layout.movedim(dim, -1).reshape(-1, size).tolist():
+            group = dist.new_group(row, timeout=timeout)
+            if rank in row:
+                mine = group
+        groups.append(mine)
+    if rank not in members:
+        return None
+    if len(shape) == 1:
+        return DeviceMesh.from_group(groups[0], device_type,
+                                     mesh_dim_names=names)
+    return DeviceMesh.from_group(groups, device_type, mesh=layout,
+                                 mesh_dim_names=names)
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh``, in its axis order."""
+    return {name: int(mesh.size(i))
+            for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device the mesh's tensors live on (the current CUDA device under
+    NCCL, the CPU under gloo)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def is_mesh_leader(mesh) -> bool:
+    """Whether this rank sits at coordinate (0, ..., 0) of ``mesh``."""
+    return all(c == 0 for c in mesh.get_coordinate())
+
+
+def mesh_max(mesh, value: float) -> float:
+    """MAX of ``value`` over every rank of ``mesh`` (one all-reduce per
+    axis; the mesh is the product of its axes). Doubles as a barrier."""
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=mesh_device(mesh))
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(name))
+    return float(t.item())
+
+
+# ---------------------------------------------------------------------------
+# pack / unpack moves and the pair-valued collective primitives
+# ---------------------------------------------------------------------------
+
+
+def _lead(x: torch.Tensor, axis: int, p: int) -> torch.Tensor:
+    """Cut ``axis`` of ``x`` into (p, w) and return the contiguous buffer
+    with the p axis in front: shape ``(p,) + x.shape`` with ``axis``
+    holding w (the pack move; free when the p axis already leads)."""
+    return x.unflatten(axis, (p, -1)).movedim(axis, 0).contiguous()
+
+
+def _unlead(buf: torch.Tensor, axis: int) -> torch.Tensor:
+    """Merge the leading p axis of ``buf`` into ``axis`` of the rest: the
+    blocks are concatenated along ``axis`` in rank order (the unpack move;
+    free when ``axis`` leads)."""
+    return buf.movedim(0, axis).contiguous().flatten(axis, axis + 1)
+
+
+def _a2a_start(buf: torch.Tensor, group):
+    """Start the all_to_all of a packed buffer; returns (work, output)."""
+    out = torch.empty_like(buf)
+    work = dist.all_to_all_single(out, buf, group=group, async_op=True)
+    return work, out
+
+
+def a2a_pair(c: Complex, group, split: int, concat: int, p: int) -> Complex:
+    """Tiled all_to_all of an (re, im) pair over ``group`` (``p`` ranks)."""
+    started = [_a2a_start(_lead(a, split, p), group) for a in c]
+    for work, _ in started:
+        work.wait()
+    return tuple(_unlead(out, concat) for _, out in started)
+
+
+def _gather_start(x: torch.Tensor, group, p: int):
+    """Start a stacked all_gather of ``x``; returns (work, (p,) + shape).
+    The output is one flat buffer (gloo takes no stacked shape)."""
+    src = x.contiguous()
+    out = torch.empty((p * src.numel(),), dtype=src.dtype, device=src.device)
+    work = dist.all_gather_into_tensor(out, src.view(-1), group=group,
+                                       async_op=True)
+    return work, out.view((p,) + tuple(src.shape))
+
+
+def all_gather_pair(c: Complex, group, p: int, axis: int = 0,
+                    tiled: bool = False) -> Complex:
+    """all_gather of a pair of same-layout tensors: stacked on a new
+    leading axis, or with ``tiled`` concatenated along ``axis``."""
+    started = [_gather_start(a, group, p) for a in c]
+    for work, _ in started:
+        work.wait()
+    if not tiled:
+        return tuple(out for _, out in started)
+    return tuple(_unlead(out, axis) for _, out in started)
+
+
+# ---------------------------------------------------------------------------
+# backends
+# ---------------------------------------------------------------------------
+
+
+class CommBackend:
+    """One redistribution strategy for pair-valued exchanges."""
+
+    name: str = "abstract"
+
+    def exchange(self, c: Complex, group, *, split: int, concat: int,
+                 p: int) -> Complex:
+        """Redistribute: split ``split`` over the ``p`` ranks of
+        ``group``, concatenate received blocks along ``concat``."""
+        raise NotImplementedError
+
+    def gather(self, c: Complex, group, p: int) -> Complex:
+        """Stacked all_gather of a pair (leading rank axis added). Both
+        pair members must share their leading dimension."""
+        return all_gather_pair(c, group, p)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"{type(self).__name__}()"
+
+
+class CollectiveBackend(CommBackend):
+    """Monolithic all_to_all (MPI-parcelport analogue)."""
+
+    name = "collective"
+
+    def exchange(self, c, group, *, split, concat, p):
+        return a2a_pair(c, group, split, concat, p)
+
+
+class PipelinedBackend(CommBackend):
+    """Chunked all_to_all software pipeline (LCI-parcelport analogue).
+
+    Each rank's destination block of width W = size(split)/p is cut into
+    ``chunks`` sub-blocks; sub-block c of every destination goes out in its
+    own pair of collectives, so the concatenation of received chunks along
+    ``split`` reproduces the monolithic layout exactly. Every chunk's
+    collectives are started with ``async_op=True`` before any is waited on,
+    so on NCCL chunk c's transfer can overlap the packing of chunk c+1.
+    """
+
+    name = "pipelined"
+
+    def __init__(self, chunks: int = 4):
+        self.chunks = chunks
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"PipelinedBackend(chunks={self.chunks})"
+
+    def exchange(self, c, group, *, split, concat, p):
+        shape = tuple(c[0].shape)
+        w = shape[split] // p
+        chunks = _effective_chunks(self.chunks, w)
+        if chunks == 1:
+            return a2a_pair(c, group, split, concat, p)
+        wc = w // chunks
+        grouped = shape[:split] + (p, w) + shape[split + 1:]
+        g = [a.reshape(grouped) for a in c]
+        # chunk k of every destination block, packed in one copy
+        started = [[_a2a_start(a.narrow(split + 1, k * wc, wc)
+                               .movedim(split, 0).contiguous(), group)
+                    for a in g] for k in range(chunks)]
+        for pair in started:
+            for work, _ in pair:
+                work.wait()
+        return tuple(torch.cat([_unlead(pair[i][1], concat)
+                                for pair in started], dim=split)
+                     for i in range(2))
+
+    def gather(self, c, group, p):
+        """Chunked stacked all_gather: the leading (shared) dimension is cut
+        into ``chunks`` pieces, each gathered by its own collectives, all
+        in flight at once; received chunks concatenate along axis 1."""
+        n = c[0].shape[0]
+        chunks = _effective_chunks(self.chunks, n)
+        if chunks == 1:
+            return all_gather_pair(c, group, p)
+        w = n // chunks
+        started = [[_gather_start(a.narrow(0, k * w, w), group, p)
+                    for a in c] for k in range(chunks)]
+        for pair in started:
+            for work, _ in pair:
+                work.wait()
+        return tuple(torch.cat([pair[i][1] for pair in started], dim=1)
+                     for i in range(2))
+
+
+class AgasBackend(CommBackend):
+    """AGAS emulation: implicit addressing = replicate-then-slice.
+
+    Every rank gathers the FULL array (p x the necessary bytes) along the
+    concat direction and then keeps its block by its rank in the group —
+    the redundant data movement the paper measures for the AGAS variant.
+    """
+
+    name = "agas"
+
+    def exchange(self, c, group, *, split, concat, p):
+        full = all_gather_pair(c, group, p, axis=concat, tiled=True)
+        i = dist.get_rank(group)
+        w = full[0].shape[split] // p
+        return tuple(a.narrow(split, i * w, w).contiguous() for a in full)
+
+
+# ---------------------------------------------------------------------------
+# resolution: strings (and per-axis collections of strings) -> backends
+# ---------------------------------------------------------------------------
+
+CommSpec = Union[str, CommBackend]
+
+
+def get_backend(spec: CommSpec, chunks: int = 4) -> CommBackend:
+    """Resolve a backend spec: a :class:`CommBackend` instance, or one of
+    ``"collective"`` / ``"pipelined"`` (optionally ``"pipelined:<chunks>"``)
+    / ``"agas"``."""
+    if isinstance(spec, CommBackend):
+        return spec
+    if not isinstance(spec, str):
+        raise TypeError(f"comm spec must be str or CommBackend, got {spec!r}")
+    name, _, arg = spec.partition(":")
+    if name == "collective":
+        return CollectiveBackend()
+    if name == "pipelined":
+        return PipelinedBackend(int(arg) if arg else chunks)
+    if name == "agas":
+        return AgasBackend()
+    if name in ("auto", "measure"):
+        raise ValueError(
+            f"comm={spec!r} is resolved at the transform entry points "
+            "(plan_nd and the fftn family), which know the mesh and shape; "
+            "pass it there, or call plan_comm*/measure_comm* yourself")
+    raise ValueError(f"comm backend {spec!r}; options {COMM_BACKENDS}")
+
+
+def _normalize_axis_specs(comm, axes: Sequence[str]) -> Tuple[CommSpec, ...]:
+    """Expand a per-axis comm argument to one raw spec per mesh axis.
+
+    ``comm`` may be a single spec (applied to every axis), a sequence with
+    one spec per axis (ordered as ``axes``), or a dict keyed by mesh-axis
+    name (missing axes default to ``"collective"``).  Specs are NOT resolved
+    to backends here, so ``"auto"``/``"measure"`` survive for the caller.
+    """
+    if isinstance(comm, dict):
+        unknown = set(comm) - set(axes)
+        if unknown:
+            raise ValueError(
+                f"per-axis comm has unknown mesh axes {sorted(unknown)}; "
+                f"valid axes: {tuple(axes)}")
+        return tuple(comm.get(a, "collective") for a in axes)
+    if isinstance(comm, (list, tuple)):
+        if len(comm) != len(axes):
+            raise ValueError(
+                f"per-axis comm needs {len(axes)} entries for {axes}, "
+                f"got {len(comm)}")
+        return tuple(comm)
+    return tuple(comm for _ in axes)
+
+
+def resolve_axis_backends(comm, axes: Sequence[str],
+                          chunks: int = 4) -> Tuple[CommBackend, ...]:
+    """Per-mesh-axis backend resolution for multi-axis (pencil) paths
+    (see :func:`_normalize_axis_specs` for the accepted shapes)."""
+    return tuple(get_backend(s, chunks)
+                 for s in _normalize_axis_specs(comm, axes))
+
+
+# ---------------------------------------------------------------------------
+# communication-aware planning, ESTIMATE mode
+# ---------------------------------------------------------------------------
+
+
+def _default_hw(hw):
+    from .plan import H100
+    return hw or H100
+
+
+def _roofline_choice(wire_bytes: float, flops: float, hw,
+                     overlap_capable: bool = True) -> str:
+    """The shared decision rule: the monolithic collective wins when the
+    exchange is small relative to the compute it could hide behind;
+    pipelining wins when exposed-comm would exceed ~20% of that compute
+    time and overlap hardware exists."""
+    t_comm = wire_bytes / hw.link_bw
+    t_comp = flops / hw.flops
+    if overlap_capable and t_comm > 0.2 * t_comp:
+        return "pipelined"
+    return "collective"
+
+
+def plan_comm(n: int, m: int, p: int, hw=None,
+              overlap_capable: bool = True) -> str:
+    """Choose the communication backend for an (n x m) slab FFT on p ranks
+    (two exchanges of the (n/p) x padded_half(m, p) slab; the agas wire is
+    p times larger and never chosen)."""
+    hw = _default_hw(hw)
+    mh_pad = padded_half(m, p)
+    slab_bytes = (n / p) * mh_pad * 8.0
+    wire = 2.0 * (p - 1) / p * slab_bytes
+    # local compute: four-step matmul flops for rows + cols
+    flops = 8.0 * (n / p) * mh_pad * (
+        sum(algo.default_factorization(m // 2))
+        + sum(algo.default_factorization(n)))
+    return _roofline_choice(wire, flops, hw, overlap_capable)
+
+
+def plan_comm_slab_nd(shape: Sequence[int], p: int, hw=None,
+                      kind: str = "c2c",
+                      overlap_capable: bool = True) -> str:
+    """:func:`plan_comm` generalized to an N-D slab decomposition: the first
+    transform axis is sharded over ``p`` ranks, the last axis (its r2c half
+    spectrum, for real kinds) is split in the exchange, every other axis is
+    local."""
+    hw = _default_hw(hw)
+    if p <= 1:
+        return "collective"
+    last = padded_half(shape[-1], p) if kind in ("r2c", "c2r") \
+        else pad_to(shape[-1], p)
+    elems = float(np.prod([pad_to(shape[0], p), *shape[1:-1]])) * last
+    wire = 2.0 * (p - 1) / p * (elems / p) * 8.0
+    flops = 8.0 * (elems / p) * sum(fac_sum(n) for n in shape)
+    return _roofline_choice(wire, flops, hw, overlap_capable)
+
+
 def fac_sum(n: int) -> float:
     """Four-step MAC count per element for a length-``n`` stage, falling
     back to the direct DFT for lengths the factorizer cannot split (the
-    shared cost kernel of the N-D decomposition roofline)."""
+    shared cost kernel of the slab and N-D decomposition rooflines)."""
     try:
         return float(sum(algo.default_factorization(n)))
     except ValueError:
         return float(n)
+
+
+def plan_comm_pencil_nd(shape: Sequence[int], mesh_shape: Sequence[int],
+                        hw=None, overlap_capable: bool = True,
+                        kind: str = "c2c") -> Tuple[str, ...]:
+    """Choose per-mesh-axis comm backends for a k-axis pencil FFT of an
+    N-D transform (``k = len(mesh_shape)`` sharded leading axes, one
+    exchange per adjacent pair of the chain). Exchange ``j`` stays within
+    the ``p_j``-sized communicator of mesh axis ``j`` and is planned against
+    the FFT stage along transform axis ``j`` it can hide behind. Returns one
+    backend spec per mesh axis, in decomposition order."""
+    hw = _default_hw(hw)
+    mesh_shape = tuple(int(p) for p in mesh_shape)
+    nlast_eff = padded_half(shape[-1], mesh_shape[-1]) \
+        if kind in ("r2c", "c2r") else shape[-1]
+    # the local pencil: an (re, im) f32 pair, constant across every exchange
+    devices = float(np.prod(mesh_shape))
+    elems = float(np.prod(shape[:-1])) * nlast_eff / devices
+    pencil_bytes = elems * 8.0
+
+    def choose(p: int, n_axis: int) -> str:
+        if p <= 1:
+            return "collective"
+        wire = (p - 1) / p * pencil_bytes
+        flops = 8.0 * elems * sum(algo.default_factorization(n_axis))
+        return _roofline_choice(wire, flops, hw, overlap_capable)
+
+    # mesh axis j's exchange feeds the FFT stage along transform axis j
+    return tuple(choose(p, shape[j]) for j, p in enumerate(mesh_shape))
+
+
+def plan_comm_pencil(shape: Tuple[int, int, int],
+                     mesh_shape: Tuple[int, int], hw=None,
+                     overlap_capable: bool = True,
+                     kind: str = "c2c") -> Tuple[str, str]:
+    """The 3D/2-mesh-axis case of :func:`plan_comm_pencil_nd`."""
+    s0, s1 = plan_comm_pencil_nd(shape, mesh_shape, hw=hw,
+                                 overlap_capable=overlap_capable, kind=kind)
+    return s0, s1
+
+
+def plan_comm_factor1d(n: int, n1: int, n2: int, p: int, hw=None,
+                       overlap_capable: bool = True) -> str:
+    """Choose the exchange backend for the distributed 1D factor-split FFT:
+    each of its three exchanges moves the local ``(n1/p, n2)`` pair while a
+    DFT stage computes."""
+    hw = _default_hw(hw)
+    if p <= 1:
+        return "collective"
+    elems = float(n) / p
+    wire = (p - 1) / p * elems * 8.0
+    flops = 8.0 * elems * (fac_sum(n1) + fac_sum(n2))
+    return _roofline_choice(wire, flops, hw, overlap_capable)
+
+
+def plan_comm_conv(bsz: int, d: int, n1: int, n2: int, p: int, hw=None,
+                   overlap_capable: bool = True) -> str:
+    """Choose the exchange backend for the sequence-sharded FFT convolution:
+    each of its all_to_alls moves the local (bsz, n1/p, n2, d) block while a
+    DFT stage computes."""
+    hw = _default_hw(hw)
+    if p <= 1:
+        return "collective"
+    elems = bsz * (n1 / p) * n2 * d
+    wire = (p - 1) / p * elems * 8.0
+    flops = 8.0 * elems * (sum(algo.default_factorization(n1))
+                           + sum(algo.default_factorization(n2)))
+    return _roofline_choice(wire, flops, hw, overlap_capable)
+
+
+def plan_comm_gather(n_elems: int, p: int, block: int = 256, hw=None,
+                     overlap_capable: bool = True) -> str:
+    """Choose the gather backend for the int8 compressed all-reduce: every
+    rank receives p x the quantized payload (int8 values + bf16 per-block
+    scales) and the dequantize-sum is the only compute to hide behind."""
+    hw = _default_hw(hw)
+    if p <= 1:
+        return "collective"
+    wire = p * (n_elems + (n_elems / block) * 2.0)
+    flops = 2.0 * p * n_elems
+    return _roofline_choice(wire, flops, hw, overlap_capable)
+
+
+# ---------------------------------------------------------------------------
+# communication-aware planning, MEASURE mode (timed on the live mesh)
+# ---------------------------------------------------------------------------
+
+DEFAULT_CHUNK_SWEEP = (2, 4, 8)
+
+#: timing probes actually executed (one per candidate backend); tests
+#: snapshot this to prove wisdom/memo hits re-measure nothing.
+MEASURE_STATS = {"timed": 0}
+
+# process-global verdict memo, keyed like the wisdom store: each exchange is
+# timed once per process no matter how many calls consume the verdict
+_MEASURE_MEMO: Dict[str, dict] = {}
+
+
+def forget_measurements() -> None:
+    """Drop the in-process comm measurement memo (wisdom files persist)."""
+    _MEASURE_MEMO.clear()
+
+
+def _effective_chunks(chunks: int, w: int) -> int:
+    """The chunk count :class:`PipelinedBackend` will actually use for a
+    destination-block width of ``w``."""
+    c = max(1, min(chunks, w))
+    while w % c:
+        c -= 1
+    return c
+
+
+def time_on_mesh(fn, mesh, reps: int) -> float:
+    """Seconds per call of ``fn`` on every rank of ``mesh``: one warm-up
+    call (and kernel build), a barrier, ``reps`` calls ended by a device
+    synchronize, and the MAX over the mesh, so every rank returns the same
+    number. An exception raises on the rank that hit it."""
+    dev = mesh_device(mesh)
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    mesh_max(mesh, 0.0)                     # barrier
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return mesh_max(mesh, (time.perf_counter() - t0) / reps)
+
+
+def _time_exchange(backend: CommBackend, mesh, axis_name: str,
+                   local_shape: Sequence[int], split: int, concat: int,
+                   p: int, reps: int) -> float:
+    """Time one redistribution with ``backend`` on the live mesh, on a
+    probe of the transform's local block (an (re, im) f32 pair of
+    ``local_shape``, the same data on every rank)."""
+    rng = np.random.default_rng(0)
+    dev = mesh_device(mesh)
+    probe = tuple(torch.from_numpy(
+        rng.standard_normal(tuple(local_shape)).astype(np.float32)).to(dev)
+        for _ in range(2))
+    group = mesh.get_group(axis_name)
+    seconds = time_on_mesh(lambda: backend.exchange(
+        probe, group, split=split, concat=concat, p=p), mesh, reps)
+    MEASURE_STATS["timed"] += 1
+    return seconds
+
+
+def measure_comm(mesh, axis_name: str, local_shape: Sequence[int], *,
+                 split: int, concat: int,
+                 chunk_candidates: Sequence[int] = DEFAULT_CHUNK_SWEEP,
+                 reps: int = 3) -> Tuple[str, Dict[str, float]]:
+    """FFTW MEASURE for one exchange: time every backend — the monolithic
+    collective, the pipelined exchange at each distinct feasible chunk
+    count, and the agas gather emulation — on the LIVE mesh at the actual
+    local shape, and return ``(fastest_spec, {spec: seconds})``, the same
+    on every rank. A 1-rank communicator returns ``("collective", {})``
+    without timing anything."""
+    p = mesh_sizes(mesh)[axis_name]
+    if p <= 1:
+        return "collective", {}
+    specs = _candidate_specs(local_shape[split] // p, chunk_candidates,
+                             base=("collective", "agas"))
+    return _run_sweep(specs, lambda spec: _time_exchange(
+        get_backend(spec), mesh, axis_name, tuple(local_shape), split,
+        concat, p, reps))
+
+
+def _candidate_specs(width: int, chunk_candidates: Sequence[int],
+                     base: Sequence[str]) -> Sequence[str]:
+    """The sweep's candidate list: ``base`` plus one pipelined spec per
+    DISTINCT effective chunk count (what :class:`PipelinedBackend` would
+    actually use at this destination-block ``width``)."""
+    specs = list(base)
+    for c in sorted(set(int(c) for c in chunk_candidates)):
+        ce = _effective_chunks(c, width)
+        spec = f"pipelined:{ce}"
+        if ce > 1 and spec not in specs:
+            specs.append(spec)
+    return specs
+
+
+def _run_sweep(specs: Sequence[str], timer) -> Tuple[str, Dict[str, float]]:
+    """Time every candidate in order and keep the fastest. The times are
+    the mesh's MAX, so every rank takes the same argmin; a candidate that
+    fails raises."""
+    timings = {spec: timer(spec) for spec in specs}
+    return min(timings, key=timings.get), timings
+
+
+def _measured_verdict(key: str, wisdom: Optional[WisdomStore], thunk,
+                      mesh) -> str:
+    """Measurement cache: consult the wisdom store, then the process memo;
+    run ``thunk`` (the timing sweep, on every rank) only on a double miss.
+    Every rank keeps the verdict; only the mesh's rank 0 writes the
+    wisdom file."""
+    if wisdom is not None:
+        hit = wisdom.get(key)
+        if hit is not None:
+            _MEASURE_MEMO.setdefault(key, hit)
+            return hit["backend"]
+    rec = _MEASURE_MEMO.get(key)
+    if rec is None:
+        best, timings = thunk()
+        rec = {"backend": best, "seconds": timings.get(best, 0.0),
+               "candidates": dict(timings)}
+        _MEASURE_MEMO[key] = rec
+    if wisdom is not None and key not in wisdom:
+        wisdom.put(key, rec, persist=is_mesh_leader(mesh))
+    return rec["backend"]
+
+
+def _hw_tag(hw) -> str:
+    return _default_hw(hw).name
+
+
+def measure_comm_slab(n: int, m: int, mesh, axis: str, kind: str = "r2c",
+                      wisdom: Optional[WisdomStore] = None,
+                      chunk_candidates: Sequence[int] = DEFAULT_CHUNK_SWEEP,
+                      reps: int = 3, hw=None) -> str:
+    """Measured backend choice for the (n x m) slab FFT's exchanges: the
+    first redistribution is timed; the return exchange moves the same
+    bytes through the same communicator, so one verdict serves both
+    directions and the inverse."""
+    return measure_comm_slab_nd((n, m), mesh, axis, kind=kind, wisdom=wisdom,
+                                chunk_candidates=chunk_candidates, reps=reps,
+                                hw=hw)
+
+
+def measure_comm_slab_nd(shape: Sequence[int], mesh, axis: str,
+                         kind: str = "r2c",
+                         wisdom: Optional[WisdomStore] = None,
+                         chunk_candidates: Sequence[int] = DEFAULT_CHUNK_SWEEP,
+                         reps: int = 3, hw=None) -> str:
+    """:func:`measure_comm_slab` generalized to an N-D slab decomposition
+    (first axis sharded, last axis split in the exchange, middles local)."""
+    p = mesh_sizes(mesh)[axis]
+    if p <= 1:
+        return "collective"
+    last = padded_half(shape[-1], p) if kind in ("r2c", "c2r") \
+        else pad_to(shape[-1], p)
+    kind_key = "r2c" if kind in ("r2c", "c2r") else kind
+    key = (f"comm/slab/{'x'.join(str(s) for s in shape)}/p{p}/{kind_key}/"
+           f"{_hw_tag(hw)}")
+    local_shape = (pad_to(shape[0], p) // p, *shape[1:-1], last)
+    return _measured_verdict(key, wisdom, lambda: measure_comm(
+        mesh, axis, local_shape, split=len(local_shape) - 1, concat=0,
+        chunk_candidates=chunk_candidates, reps=reps), mesh)
+
+
+def measure_comm_pencil_nd(shape: Sequence[int], mesh,
+                           axes: Sequence[str], kind: str = "c2c",
+                           wisdom: Optional[WisdomStore] = None,
+                           chunk_candidates: Sequence[int]
+                           = DEFAULT_CHUNK_SWEEP,
+                           reps: int = 3,
+                           which: Optional[Sequence[bool]] = None, hw=None):
+    """Measured per-mesh-axis backend choice for a k-axis pencil FFT: each
+    communicator's exchange is timed at its true local shape in the
+    execution chain. Returns one spec per mesh axis, ``None`` where
+    ``which`` masks it off."""
+    d, k = len(shape), len(axes)
+    sizes = mesh_sizes(mesh)
+    ps = tuple(sizes[a] for a in axes)
+    which = tuple(which) if which is not None else (True,) * k
+    # c2r retraces r2c's exchanges with byte-identical probes, so the
+    # inverse shares the forward's key
+    kind_key = "r2c" if kind in ("r2c", "c2r") else kind
+    base = (f"comm/pencil/{'x'.join(str(s) for s in shape)}/"
+            f"mesh{'x'.join(str(p) for p in ps)}/{kind_key}")
+    from .api import NdPlan
+    padded = list(NdPlan(tuple(shape), kind_key, "pencil",
+                         tuple(axes), ps).padded_spectrum_shape)
+
+    def local_shape(j: int) -> Tuple[int, ...]:
+        """Local block just before exchange j in the forward chain: axes
+        0..j input-sharded, the donor axis full, axes past the donor
+        already exchanged onto their final communicator."""
+        out = []
+        donor = j + 1 if j < k - 1 else d - 1
+        for i in range(d):
+            if i <= j:
+                out.append(padded[i] // ps[i])
+            elif i == donor:
+                out.append(padded[i])
+            elif i < k:
+                out.append(padded[i] // ps[i - 1])
+            elif i == d - 1:
+                out.append(padded[i] // ps[k - 1])
+            else:
+                out.append(padded[i])
+        return tuple(out)
+
+    specs = [None] * k
+    for j in range(k - 1, -1, -1):          # execution order of the chain
+        if not which[j]:
+            continue
+        if ps[j] <= 1:
+            specs[j] = "collective"
+            continue
+        donor = j + 1 if j < k - 1 else d - 1
+        specs[j] = _measured_verdict(
+            f"{base}/ax{j}/{_hw_tag(hw)}", wisdom,
+            lambda j=j, donor=donor: measure_comm(
+                mesh, axes[j], local_shape(j), split=donor, concat=j,
+                chunk_candidates=chunk_candidates, reps=reps), mesh)
+    return tuple(specs)
+
+
+def measure_comm_pencil(shape: Tuple[int, int, int], mesh,
+                        axes: Sequence[str], kind: str = "c2c",
+                        wisdom: Optional[WisdomStore] = None,
+                        chunk_candidates: Sequence[int] = DEFAULT_CHUNK_SWEEP,
+                        reps: int = 3,
+                        which: Tuple[bool, bool] = (True, True), hw=None):
+    """The 3D/2-mesh-axis case of :func:`measure_comm_pencil_nd`."""
+    s0, s1 = measure_comm_pencil_nd(
+        tuple(shape), mesh, tuple(axes), kind=kind, wisdom=wisdom,
+        chunk_candidates=chunk_candidates, reps=reps, which=which, hw=hw)
+    return s0, s1
+
+
+def measure_comm_factor1d(n: int, factors: Tuple[int, int], mesh, axis: str,
+                          wisdom: Optional[WisdomStore] = None,
+                          chunk_candidates: Sequence[int]
+                          = DEFAULT_CHUNK_SWEEP,
+                          reps: int = 3, hw=None) -> str:
+    """Measured backend choice for the distributed 1D factor-split FFT:
+    times the stage-A exchange of the local (n1/p, n2) block (all three of
+    the algorithm's exchanges move the same bytes through the same
+    communicator)."""
+    p = mesh_sizes(mesh)[axis]
+    if p <= 1:
+        return "collective"
+    n1, n2 = factors
+    key = f"comm/factor1d/{n}/{n1}x{n2}/p{p}/{_hw_tag(hw)}"
+    return _measured_verdict(key, wisdom, lambda: measure_comm(
+        mesh, axis, (n1 // p, n2), split=1, concat=0,
+        chunk_candidates=chunk_candidates, reps=reps), mesh)

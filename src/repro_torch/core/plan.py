@@ -69,6 +69,7 @@ class HardwareSpec:
     link_bw: float        # bytes/s per interconnect link
     matmul_dim: int       # native matmul tile
     vmem_bytes: int       # fast scratch (shared memory / L2)
+    collective_lat: float  # seconds charged per collective call
 
 
 # flops and hbm_bw measured by `python -m repro_torch.calibrate` on an
@@ -77,11 +78,22 @@ class HardwareSpec:
 # (bytes read + written). link_bw is NVLink's published 450 GB/s each way;
 # matmul_dim is the register tile (8 columns) of the four-step kernel's
 # dense first design, which the estimate still prices (PERF.md section 7);
-# vmem_bytes is the 50 MB L2.
+# vmem_bytes is the 50 MB L2. collective_lat is the cost of one NCCL
+# all_to_all_single call of 1 KiB at world size 1 on the same card, 50.66
+# us (`chip_smoke.py` phase 10, calibrate.collective_latency, on an
+# "NVIDIA H100 80GB HBM3, 700.00 W"; other runs gave 78.06 and 133.74 us).
+# Across 4 NVLink-connected cards of that kind one call measured 77.93 us
+# (`scripts/dist_times.py`): the host's dispatch, not the wire, sets it.
 H100 = HardwareSpec("h100", flops=51.33e12, hbm_bw=2.974e12, link_bw=450e9,
-                    matmul_dim=8, vmem_bytes=50 * 2 ** 20)
+                    matmul_dim=8, vmem_bytes=50 * 2 ** 20,
+                    collective_lat=5.066e-5)
+# collective_lat: one gloo all_to_all_single call of 1 KiB at world size 1
+# on an 8-core x86-64 CPU (`python -m repro_torch.calibrate --gloo`, the
+# middle of three runs of 25.0-28.7 us); the other constants are the
+# reference's CPU profile.
 CPU_LOCAL = HardwareSpec("cpu_local", flops=5e9, hbm_bw=20e9, link_bw=1e9,
-                         matmul_dim=8, vmem_bytes=32 * 2 ** 20)
+                         matmul_dim=8, vmem_bytes=32 * 2 ** 20,
+                         collective_lat=2.68e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ autotuners, namespaced by key prefix:
   :class:`repro_torch.core.plan.Planner` (key:
   ``plan/{n}/{kind}/b{log2-batch-bucket}/{mode}/{permuted}/{backends}/{hw}``;
   the hardware tag keeps H100 verdicts apart from any other profile's).
-* ``comm/...`` — exchange-backend verdicts (written by the distributed
-  layer, which this package does not have yet).
+* ``comm/...`` — exchange-backend verdicts written by the
+  :mod:`repro_torch.core.comm` autotuners (the reference's keys with the
+  hardware tag appended).
 * ``dfft/...`` — N-D decomposition verdicts (local vs slab vs pencil, with
   mesh-axis assignment and resolved comm specs) written by
   :func:`repro_torch.core.api.plan_nd`.
@@ -84,7 +85,9 @@ class WisdomStore:
         path = path or self.path
         if not path:
             return
-        tmp = path + ".tmp"
+        # one temporary file per process: ranks sharing a wisdom file may
+        # save at once, and each rename is atomic
+        tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:
             f.write(self.export_wisdom())
         os.replace(tmp, path)
@@ -94,9 +97,13 @@ class WisdomStore:
     def get(self, key: str) -> Optional[dict]:
         return self._entries.get(key)
 
-    def put(self, key: str, record: dict) -> None:
+    def put(self, key: str, record: dict, persist: bool = True) -> None:
+        """Record ``key``; with ``persist`` False the file is left alone
+        (the ranks of a mesh other than its first keep verdicts in memory
+        only)."""
         self._entries[key] = record
-        self.save()
+        if persist:
+            self.save()
 
     def __contains__(self, key: str) -> bool:
         return key in self._entries

@@ -1,22 +1,27 @@
 """The port end to end: its planned N-D FFT front-end
 (repro_torch.core.api) against the reference's (repro.core.api, mesh=None,
-kernel backend in interpret mode) and numpy, on the CPU."""
+kernel backend in interpret mode) and numpy, on the CPU; and the
+distributed executors on a one-rank gloo mesh in this process (the 8-rank
+suite is tests/test_torch_dist.py)."""
 
 import dataclasses
+import datetime
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import algo as jalgo
 from repro.core import api as japi
 from repro.core import plan as jplan
 from repro_torch import kernels
 from repro_torch.convert import nd_plan_from_reference
-from repro_torch.core import api, plan
+from repro_torch.core import api, comm, dfft, plan
 
-TPU_VALUES = plan.HardwareSpec(**dataclasses.asdict(jplan.TPU_V5E))
+TPU_VALUES = plan.HardwareSpec(**dataclasses.asdict(jplan.TPU_V5E),
+                               collective_lat=japi.COLLECTIVE_LAT)
 RNG = np.random.default_rng(14)
 
 # (shape, transform ndim): a batch dim, 3D, an odd last axis, 1D
@@ -147,14 +152,151 @@ def test_entry_points_without_a_device_need_a_card():
             call()
 
 
-def test_distributed_requests_raise():
-    x = np.ones((8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.plan_nd((8, 8), mesh={"fft": 2})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.plan_nd((8, 8), decomp="slab")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.fftn(x, mesh={"fft": 2}, device="cpu")
-    slab = api.NdPlan((8, 8), "c2c", "slab", ("fft",), (2,))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.execute_nd(slab, (torch.ones(8, 8), torch.zeros(8, 8)))
+@pytest.fixture(scope="module")
+def one_rank():
+    """A gloo world of this one process, with a (1,) and a (1, 1) mesh."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield {"m1": comm.make_mesh((1,), ("fft",)),
+               "m11": comm.make_mesh((1, 1), ("mx", "my"))}
+    finally:
+        dist.destroy_process_group()
+
+
+def _cpu_planner():
+    return plan.Planner(backends=("torch",), device="cpu")
+
+
+ONE_RANK_CASES = [
+    ("slab", "m1", "r2c", (2, 10, 12), 2, "natural"),
+    ("slab", "m1", "c2c", (20, 24), 2, "transposed"),
+    ("slab", "m1", "r2c", (9, 6, 7), 3, "natural"),
+    ("pencil", "m11", "c2c", (2, 6, 10, 9), 3, "natural"),
+    ("pencil", "m11", "r2c", (6, 10, 5, 12), 4, "natural"),
+    ("factor1d", "m1", "c2c", (3, 4096), 1, "natural"),
+]
+
+
+@pytest.mark.parametrize("decomp,mesh,kind,shape,ndim,layout",
+                         ONE_RANK_CASES)
+def test_one_rank_mesh_runs_every_decomposition(one_rank, decomp, mesh,
+                                                kind, shape, ndim, layout):
+    """At world size 1 every exchange is a local collective; the results
+    match numpy, and collect/distribute keep the block convention."""
+    m = one_rank[mesh]
+    x = RNG.standard_normal(shape).astype(np.float32)
+    if kind == "c2c":
+        x = (x + 1j * RNG.standard_normal(shape)).astype(np.complex64)
+    p = _cpu_planner()
+    nd = api.plan_nd(shape[len(shape) - ndim:], kind, mesh=m, planner=p,
+                     decomp=decomp, output_layout=layout)
+    assert nd.decomp == decomp and nd.mesh_shape == (1,) * len(nd.mesh_axes)
+    local = dfft.distribute(x, nd, m)
+    if kind == "r2c":
+        spec = api.rfftn(local, mesh=m, plan=nd, planner=p)
+        back = api.irfftn(spec, mesh=m, plan=nd, planner=p)
+        ref = np.fft.rfftn(x, axes=_axes(ndim))
+    else:
+        spec = api.fftn(local, mesh=m, plan=nd, planner=p)
+        back = api.ifftn(spec, mesh=m, plan=nd, planner=p)
+        ref = np.fft.fftn(x, axes=_axes(ndim))
+    got = dfft.collect(spec, nd, m)
+    _close(_np(got), ref, ref)
+    back = dfft.collect(back, nd, m, spatial=True)
+    back = _np(back) if kind == "c2c" else back.numpy()
+    _close(back, x, x)
+
+
+@pytest.mark.parametrize("n1,n2,me,p,sign,chunk_axis", [
+    (16, 8, 0, 1, -1, 1), (16, 8, 1, 2, -1, 1), (8, 16, 3, 4, 1, 0),
+    (1 << 13, 1 << 13, 45, 64, -1, 1), (1 << 13, 1 << 13, 63, 64, 1, 0)])
+def test_factor1d_twiddle_block_is_exact_and_built_once(n1, n2, me, p, sign,
+                                                        chunk_axis):
+    """Rank ``me``'s twiddle block equals exp(sign*2*pi*i*k1*j2/N) in
+    float64 (also at N = 2**26, where float32 k1*j2 is not exact) and a
+    second call with the same key returns the cached pair."""
+    dev = torch.device("cpu")
+    got = dfft._factor1d_twiddle_block(n1, n2, me, p, sign,
+                                       chunk_axis=chunk_axis, device=dev)
+    assert got is dfft._factor1d_twiddle_block(
+        n1, n2, me, p, sign, chunk_axis=chunk_axis, device=dev)
+    k1, j2 = np.arange(n1, dtype=np.int64), np.arange(n2, dtype=np.int64)
+    if chunk_axis == 1:
+        j2 = j2[me * (n2 // p):(me + 1) * (n2 // p)]
+    else:
+        k1 = k1[me * (n1 // p):(me + 1) * (n1 // p)]
+    want = np.exp(sign * 2j * np.pi * ((k1[:, None] * j2[None]) % (n1 * n2))
+                  / (n1 * n2))
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-6)
+    dfft._factor1d_twiddle_block.cache_clear()
+
+
+def test_one_rank_mesh_needs_the_global_shape_and_checks_blocks(one_rank):
+    m = one_rank["m1"]
+    x = torch.ones(8, 8)
+    with pytest.raises(ValueError, match="shape="):
+        api.rfftn(x, mesh=m, planner=_cpu_planner())
+    with pytest.raises(ValueError, match="block"):
+        api.rfftn(x, mesh=m, shape=(8, 16), planner=_cpu_planner())
+    with pytest.raises(ValueError, match="mesh runs on cpu"):
+        api.rfftn(x, mesh=m, shape=(8, 8), device="meta")
+    spec = api.rfftn(x, mesh=m, shape=(8, 8), planner=_cpu_planner())
+    assert tuple(spec[0].shape) == (8, 5)
+
+
+def test_measure_with_an_abstract_mesh_raises():
+    with pytest.raises(ValueError, match="live mesh"):
+        api.plan_nd((64, 64), "r2c", mesh={"fft": 8}, decomp="slab",
+                    comm="measure", planner=_ours())
+    with pytest.raises(ValueError, match="live mesh"):
+        api.plan_nd((16, 16, 16), "c2c", mesh={"mx": 2, "my": 2},
+                    decomp="pencil", comm=("measure", "collective"),
+                    planner=_ours())
+    with pytest.raises(ValueError, match="live DeviceMesh"):
+        api.execute_nd(api.plan_nd((64, 64), "r2c", mesh={"fft": 8},
+                                   decomp="slab", planner=_ours()),
+                       torch.ones(8, 64), mesh={"fft": 8})
+
+
+def test_a_candidate_that_raises_makes_measured_planning_raise(
+        one_rank, monkeypatch):
+    """No candidate is skipped: a failing exchange in the comm sweep and a
+    failing finalist both make planning raise (the one-rank mesh poses as
+    two ranks, so that there is something to measure)."""
+    m = one_rank["m1"]
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("candidate broke")
+
+    comm.forget_measurements()
+    for module in (api, comm):
+        monkeypatch.setattr(module, "mesh_sizes", lambda mesh: {"fft": 2})
+    monkeypatch.setattr(comm.CollectiveBackend, "exchange",
+                        lambda self, c, group, **kw: c)
+    monkeypatch.setattr(comm.AgasBackend, "exchange", broken)
+    with pytest.raises(RuntimeError, match="candidate broke"):
+        api.plan_nd((16, 16), "r2c", mesh=m, decomp="slab", comm="measure",
+                    planner=_cpu_planner())
+    monkeypatch.undo()
+    comm.forget_measurements()
+    monkeypatch.setattr(api, "execute_nd", broken)
+    with pytest.raises(RuntimeError, match="candidate broke"):
+        api._measure_finalists(
+            [(0.0, api.NdPlan((8, 8), "r2c", "local"))], m, _cpu_planner(),
+            lambda dec, axes, est: api.NdPlan((8, 8), "r2c", dec))
+
+
+def test_measured_planning_on_one_rank_times_nothing(one_rank):
+    """A one-rank mesh has no live axis: local is the only candidate and
+    comm="measure" resolves without timing (as the reference's p <= 1)."""
+    m = one_rank["m1"]
+    before = (api.PLAN_ND_STATS["timed"], comm.MEASURE_STATS["timed"])
+    nd = api.plan_nd((16, 16), "r2c", mesh=m, mode="measured",
+                     planner=_cpu_planner())
+    assert nd.decomp == "local"
+    forced = api.plan_nd((16, 16), "r2c", mesh=m, decomp="slab",
+                         comm="measure", planner=_cpu_planner())
+    assert forced.comm == ("collective",)
+    assert (api.PLAN_ND_STATS["timed"], comm.MEASURE_STATS["timed"]) == before

@@ -1,0 +1,484 @@
+"""The port's distributed FFT layer on 8 gloo ranks against the reference
+on 8 fake CPU devices and against numpy.
+
+One module-scoped fixture makes two runs at once, each in its own process
+started from this file:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python tests/test_torch_dist.py ref OUT.npz
+    python tests/test_torch_dist.py port OUT.npz HARDWARE_JSON
+
+The first computes every case of ``CASES`` with ``repro.core`` (JAX, 8
+fake devices, meshes with Auto axis types, on which the reference's
+distributed paths run on jax 0.9; see ROADMAP.md, Queue 3); the second
+spawns 8 gloo ranks with ``torch.multiprocessing`` that compute them with
+``repro_torch`` on each rank's block. The tests then read their cases
+from the two result files. Tolerances are the reference's own
+(tests/_dist_worker.py): each forward within 1e-4 of max|numpy| of numpy
+in float64 and of the reference, each round trip within 1e-3. The cases
+are modelled on tests/_dist_worker.py (check_fft2_slab, check_fft3_pencil,
+check_plan_nd, check_plan_nd_generalized). JAX is imported only by the
+reference's run and the fixture, never by the gloo ranks; torch only by
+the port's run.
+"""
+
+import dataclasses
+import datetime
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytestmark = pytest.mark.slow
+
+ROOT = Path(__file__).resolve().parents[1]
+RUN_TIMEOUT = 300      # seconds; the two runs take about 20 s together
+
+# ---------------------------------------------------------------------------
+# the cases (shared by both runs)
+# ---------------------------------------------------------------------------
+
+WORLD = 8
+
+# name -> (shape, axis names): meshes over ranks 0..prod(shape)-1
+MESHES = {
+    "m8": ((8,), ("fft",)),
+    "m4": ((4,), ("fft4",)),
+    "m3": ((3,), ("s",)),
+    "m42": ((4, 2), ("mx", "my")),
+    "m22": ((2, 2), ("qx", "qy")),
+    "m222": ((2, 2, 2), ("ma", "mb", "mc")),
+}
+
+
+def _case(name, mesh, kind, shape, decomp, batch=(), comm="collective",
+          chunks=4, layout="natural", ref_comm=None):
+    return dict(name=name, mesh=mesh, kind=kind, shape=tuple(shape),
+                batch=tuple(batch), decomp=decomp, comm=comm, chunks=chunks,
+                layout=layout, ref_comm=ref_comm or comm)
+
+
+# executed cases: forward held against numpy and the reference, then the
+# inverse against the input
+CASES = [
+    # slab 2D r2c, every backend; m = 512 so the pipelined exchange chunks
+    _case("slab_r2c_collective", "m8", "r2c", (64, 512), "slab"),
+    _case("slab_r2c_agas", "m8", "r2c", (64, 512), "slab", comm="agas"),
+    *[_case(f"slab_r2c_pipelined_c{c}", "m8", "r2c", (64, 512), "slab",
+            comm="pipelined", chunks=c) for c in (1, 3, 4)],
+    # non-divisible Mh (12 -> 7 over 3) and n (10 over 3)
+    _case("slab_r2c_mixed_3ranks", "m3", "r2c", (10, 12), "slab"),
+    # the planned transposed layout (one exchange each way)
+    _case("slab_r2c_transposed", "m8", "r2c", (64, 512), "slab",
+          layout="transposed"),
+    _case("slab_c2c_transposed_mixed", "m8", "c2c", (20, 24), "slab",
+          layout="transposed"),
+    # odd/prime axes, batch dims, a 3D slab
+    _case("slab_r2c_odd_batched", "m4", "r2c", (10, 7), "slab", batch=(2,)),
+    _case("slab_c2c_odd_batched", "m4", "c2c", (10, 7), "slab", batch=(2,)),
+    _case("slab_r2c_3d_batched", "m8", "r2c", (12, 8, 16), "slab",
+          batch=(2,)),
+    _case("slab_c2c_3d_batched", "m8", "c2c", (12, 8, 16), "slab",
+          batch=(2,)),
+    # pencil k=2: every backend, per-axis specs, mixed radix, batched, r2c
+    *[_case(f"pencil_c2c_{c}", "m42", "c2c", (8, 12, 16), "pencil", comm=c)
+      for c in ("collective", "pipelined", "agas")],
+    _case("pencil_c2c_per_axis", "m42", "c2c", (8, 12, 16), "pencil",
+          comm=("pipelined", "collective")),
+    _case("pencil_c2c_dict_axis", "m42", "c2c", (8, 12, 16), "pencil",
+          comm={"my": "agas"}),
+    _case("pencil_r2c", "m42", "r2c", (8, 12, 16), "pencil"),
+    _case("pencil_c2c_mixed_batched", "m42", "c2c", (6, 10, 9), "pencil",
+          batch=(2,)),
+    _case("pencil_r2c_mixed_batched", "m42", "r2c", (6, 10, 9), "pencil",
+          batch=(2,)),
+    _case("pencil_r2c_22_batched", "m22", "r2c", (7, 6, 13), "pencil",
+          batch=(3,)),
+    _case("pencil_c2c_22_batched", "m22", "c2c", (7, 6, 13), "pencil",
+          batch=(3,)),
+    _case("pencil_k2_4d_batched", "m42", "c2c", (8, 6, 5, 8), "pencil",
+          batch=(2,)),
+    # pencil k=3: c2c batched mixed radix, r2c, and measured comm
+    _case("pencil_k3_4d_batched", "m222", "c2c", (8, 6, 5, 8), "pencil",
+          batch=(2,)),
+    _case("pencil_k3_r2c", "m222", "r2c", (6, 10, 5, 12), "pencil"),
+    _case("pencil_k3_measure", "m222", "c2c", (8, 6, 5, 8), "pencil",
+          batch=(2,), comm="measure", ref_comm="collective"),
+    # distributed 1D
+    _case("factor1d_2e20", "m8", "c2c", (1 << 20,), "factor1d"),
+    _case("factor1d_2e16_measure", "m8", "c2c", (1 << 16,), "factor1d",
+          comm="measure", ref_comm="collective"),
+]
+
+# free plan_nd choices (estimate mode) whose verdicts and dfft/v2 keys are
+# held against the reference's
+VERDICTS = [
+    dict(name="small_2d_local", mesh="m8", kind="r2c", shape=(64, 64)),
+    dict(name="large_2d_slab", mesh="m8", kind="r2c", shape=(1024, 1024)),
+    dict(name="large_3d_pencil", mesh="m42", kind="c2c",
+         shape=(128, 128, 128)),
+    dict(name="long_1d_factor1d", mesh="m8", kind="c2c", shape=(1 << 20,)),
+    dict(name="short_1d_local", mesh="m8", kind="c2c", shape=(4096,)),
+    dict(name="transposed_2d", mesh="m8", kind="r2c", shape=(2048, 512),
+         layout="transposed"),
+    dict(name="4d_k3", mesh="m222", kind="c2c", shape=(64, 48, 40, 64)),
+]
+
+# measured planning: every finalist timed once, a second call times none
+MEASURED = dict(mesh="m8", kind="r2c", shape=(64, 320))
+
+
+def case_input(case) -> np.ndarray:
+    """The case's full input (batch dims first), the same in both runs: a
+    real float32 array for r2c, complex64 for c2c."""
+    rng = np.random.default_rng(_seed(case["name"]))
+    shape = case["batch"] + case["shape"]
+    x = rng.standard_normal(shape).astype(np.float32)
+    if case["kind"] == "c2c":
+        x = x + 1j * rng.standard_normal(shape).astype(np.float32)
+    return x.astype(np.complex64) if case["kind"] == "c2c" else x
+
+
+def _seed(name: str) -> int:
+    """A stable seed from the case name (Python's str hash is salted)."""
+    return sum((i + 1) * ord(ch) for i, ch in enumerate(name))
+
+
+# ---------------------------------------------------------------------------
+# the reference's run (JAX on 8 fake CPU devices)
+# ---------------------------------------------------------------------------
+
+
+def _jax_mesh(name):
+    import jax
+    shape, names = MESHES[name]
+    n = int(np.prod(shape))
+    return jax.make_mesh(shape, names,
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(shape),
+                         devices=jax.devices()[:n])
+
+
+def _pair_np(c):
+    return np.asarray(c[0]) + 1j * np.asarray(c[1])
+
+
+def ref_main(out_path):
+    """The reference's run: every case through ``repro.core.api`` on 8
+    fake CPU devices (the device count must be in ``XLA_FLAGS`` before JAX
+    is imported), outputs, plans, verdicts and dfft/v2 keys to
+    ``out_path``."""
+    assert "--xla_force_host_platform_device_count=8" in os.environ.get(
+        "XLA_FLAGS", ""), "the reference's run needs 8 fake CPU devices"
+    import jax
+    from repro.core import api, plan
+    planner = plan.Planner(backends=("jnp",))
+    out, meta = {}, {"plans": {}, "verdicts": {}, "keys": []}
+    for case in CASES:
+        m, shape = _jax_mesh(case["mesh"]), case["shape"]
+        d = len(shape)
+        nd = api.plan_nd(shape, case["kind"], mesh=m, planner=planner,
+                         decomp=case["decomp"], axes=MESHES[case["mesh"]][1]
+                         if case["decomp"] == "pencil" else
+                         MESHES[case["mesh"]][1][:1],
+                         comm=case["ref_comm"],
+                         output_layout=case["layout"])
+        meta["plans"][case["name"]] = dataclasses.asdict(nd)
+        run = api.rfftn if case["kind"] == "r2c" else api.fftn
+        # compiled whole: eager shard_map runs op by op, ~20x slower
+        spec = jax.jit(lambda a, m=m, nd=nd, d=d, run=run, c=case["chunks"]:
+                       run(a, mesh=m, plan=nd, planner=planner, ndim=d,
+                           chunks=c))(case_input(case))
+        out[case["name"]] = _pair_np(spec)
+    wplanner = plan.Planner(backends=("jnp",))
+    for v in VERDICTS:
+        nd = api.plan_nd(v["shape"], v["kind"], mesh=_jax_mesh(v["mesh"]),
+                         planner=wplanner,
+                         output_layout=v.get("layout", "natural"))
+        meta["verdicts"][v["name"]] = dataclasses.asdict(nd)
+    meta["keys"] = list(wplanner.wisdom.keys("dfft/"))
+    meta["collective_lat"] = api.COLLECTIVE_LAT
+    np.savez(out_path, meta=json.dumps(meta), **out)
+
+
+# ---------------------------------------------------------------------------
+# the port's run (8 gloo ranks)
+# ---------------------------------------------------------------------------
+
+TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def _pair(c):
+    return c[0].numpy() + 1j * c[1].numpy()
+
+
+def _run_case(case, mesh, planner, rt):
+    """Forward, collect, inverse, collect; returns (spectrum, spatial)."""
+    names = MESHES[case["mesh"]][1]
+    nd = rt.plan_nd(case["shape"], case["kind"], mesh=mesh, planner=planner,
+                    decomp=case["decomp"],
+                    axes=names if case["decomp"] == "pencil" else names[:1],
+                    comm=case["comm"], output_layout=case["layout"])
+    x = rt.distribute(case_input(case), nd, mesh)
+    kw = dict(mesh=mesh, plan=nd, planner=planner, chunks=case["chunks"])
+    if case["kind"] == "r2c":
+        spec = rt.rfftn(x, **kw)
+        back = rt.collect(rt.irfftn(spec, **kw), nd, mesh, spatial=True)
+        back = back.numpy()
+    else:
+        spec = rt.fftn(x, **kw)
+        back = _pair(rt.collect(rt.ifftn(spec, **kw), nd, mesh,
+                                spatial=True))
+    return nd, _pair(rt.collect(spec, nd, mesh)), back
+
+
+def _port_rank(rank, store_path, out_path, hw_json):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    import repro_torch as rt
+    from repro_torch.core import api, comm
+    store = dist.FileStore(store_path, WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=WORLD, timeout=TIMEOUT)
+    hw = rt.HardwareSpec(**json.loads(hw_json))
+    meshes = {name: rt.make_mesh(shape, names, timeout=TIMEOUT,
+                                 ranks=range(int(np.prod(shape))))
+              for name, (shape, names) in MESHES.items()}
+    out, meta = {}, {"plans": {}, "verdicts": {}}
+    planner = rt.Planner(hardware=hw, backends=("torch",), device="cpu")
+    for case in CASES:
+        mesh = meshes[case["mesh"]]
+        if mesh is None:                    # this rank is not in the mesh
+            continue
+        nd, spec, back = _run_case(case, mesh, planner, rt)
+        meta["plans"][case["name"]] = dataclasses.asdict(nd)
+        out[case["name"]] = spec
+        out[case["name"] + "/back"] = back
+
+    # free choices and their dfft/v2 keys
+    wplanner = rt.Planner(hardware=hw, backends=("torch",), device="cpu")
+    for v in VERDICTS:
+        nd = rt.plan_nd(v["shape"], v["kind"], mesh=meshes[v["mesh"]],
+                        planner=wplanner,
+                        output_layout=v.get("layout", "natural"))
+        meta["verdicts"][v["name"]] = dataclasses.asdict(nd)
+    meta["keys"] = list(wplanner.wisdom.keys("dfft/"))
+
+    # measured planning: each finalist timed once; then nothing is timed
+    mplanner = rt.Planner(hardware=hw, backends=("torch",), device="cpu")
+    m8 = meshes[MEASURED["mesh"]]
+    p0, c0 = api.PLAN_ND_STATS["timed"], comm.MEASURE_STATS["timed"]
+    ndm = rt.plan_nd(MEASURED["shape"], MEASURED["kind"], mesh=m8,
+                     planner=mplanner, mode="measured")
+    p1, c1 = api.PLAN_ND_STATS["timed"], comm.MEASURE_STATS["timed"]
+    ndm2 = rt.plan_nd(MEASURED["shape"], MEASURED["kind"], mesh=m8,
+                      planner=mplanner, mode="measured")
+    meta["measured"] = dict(
+        plan=dataclasses.asdict(ndm), again=dataclasses.asdict(ndm2),
+        finalists_timed=p1 - p0, comm_timed=c1 - c0,
+        timed_again=(api.PLAN_ND_STATS["timed"] - p1)
+        + (comm.MEASURE_STATS["timed"] - c1),
+        comm_keys=list(mplanner.wisdom.keys("comm/")))
+    meta["measure_keys"] = list(planner.wisdom.keys("comm/"))
+
+    # the planned transposed layout: one exchange each way (a spy counts)
+    class Spy(rt.CollectiveBackend):
+        count = 0
+
+        def exchange(self, c, group, **kw):
+            Spy.count += 1
+            return super().exchange(c, group, **kw)
+
+    counts = {}
+    for layout in ("natural", "transposed"):
+        nd = rt.plan_nd((64, 512), "r2c", mesh=m8, planner=planner,
+                        decomp="slab", comm=Spy(), output_layout=layout)
+        x = rt.distribute(np.ones((64, 512), np.float32), nd, m8)
+        Spy.count = 0
+        spec = rt.execute_nd(nd, x, mesh=m8, planner=planner)
+        fwd = Spy.count
+        Spy.count = 0
+        rt.execute_nd_inverse(nd, spec, mesh=m8, planner=planner)
+        counts[layout] = [fwd, Spy.count]
+    meta["exchanges"] = counts
+
+    # the stacked gathers of the backends (the compressed all-reduce's)
+    group = m8.get_group("fft")
+    mine = (torch.arange(12.).reshape(4, 3) + 100 * rank,
+            -torch.arange(12.).reshape(4, 3) - 100 * rank)
+    for spec in ("collective", "pipelined:2"):
+        g = rt.get_backend(spec).gather(mine, group, WORLD)
+        out[f"gather/{spec}"] = _pair(g)
+
+    # every rank's verdicts (free and measured plans, measured exchanges),
+    # gathered to rank 0
+    mine = json.dumps({
+        "verdicts": meta["verdicts"], "measured": meta["measured"]["plan"],
+        "measured_comm": {c["name"]: meta["plans"][c["name"]]["comm"]
+                          for c in CASES if c["comm"] == "measure"},
+        "comm_wisdom": {k: planner.wisdom.get(k)["backend"]
+                        for k in meta["measure_keys"]}}, sort_keys=True)
+    every = [None] * WORLD
+    dist.all_gather_object(every, mine)
+    meta["ranks_agree"] = [e == every[0] for e in every]
+    if rank == 0:
+        np.savez(out_path, meta=json.dumps(meta), **out)
+    dist.destroy_process_group()
+
+
+def port_main(out_path, hw_json):
+    """The port's run: 8 gloo ranks (one thread each, a file store beside
+    ``out_path``, 60 s group timeouts) compute every case on their blocks;
+    rank 0 writes the collected outputs, plans, measurement counts and
+    every rank's verdicts to ``out_path``. ``hw_json`` is the planners'
+    ``HardwareSpec``. Imports no JAX."""
+    import torch.multiprocessing as mp
+    store = os.path.join(os.path.dirname(os.path.abspath(out_path)),
+                         "gloo_store")
+    mp.start_processes(_port_rank, args=(store, out_path, hw_json),
+                       nprocs=WORLD, start_method="spawn")
+
+
+# ---------------------------------------------------------------------------
+# the tests
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dist")
+    from repro.core import api as japi
+    from repro.core import plan as jplan
+    hw = dict(dataclasses.asdict(jplan.TPU_V5E),
+              collective_lat=japi.COLLECTIVE_LAT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ref_env = dict(env, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    procs = {
+        "ref": subprocess.Popen(
+            [sys.executable, __file__, "ref", str(tmp / "ref.npz")],
+            env=ref_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True),
+        "port": subprocess.Popen(
+            [sys.executable, __file__, "port", str(tmp / "port.npz"),
+             json.dumps(hw)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)}
+    logs = {}
+    try:
+        for name, proc in procs.items():
+            logs[name] = proc.communicate(timeout=RUN_TIMEOUT)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name, proc in procs.items():
+        assert proc.returncode == 0, f"{name} run failed:\n{logs[name]}"
+    out = {}
+    for name in procs:
+        z = np.load(tmp / f"{name}.npz")
+        out[name] = ({k: z[k] for k in z.files if k != "meta"},
+                     json.loads(str(z["meta"])))
+    out["hw"] = hw
+    return out
+
+
+def _numpy(case):
+    x = case_input(case)
+    axes = tuple(range(-len(case["shape"]), 0))
+    if case["kind"] == "r2c":
+        return np.fft.rfftn(x.astype(np.float64), axes=axes)
+    return np.fft.fftn(x.astype(np.complex128), axes=axes)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
+def test_forward_matches_numpy_and_the_reference(runs, case):
+    ours, theirs = runs["port"][0][case["name"]], runs["ref"][0][case["name"]]
+    ref = _numpy(case)
+    assert ours.shape == theirs.shape == ref.shape
+    scale = np.abs(ref).max()
+    assert np.abs(ours - ref).max() <= 1e-4 * scale
+    assert np.abs(ours - theirs).max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
+def test_round_trip_gives_the_input_back(runs, case):
+    x = case_input(case)
+    back = runs["port"][0][case["name"] + "/back"]
+    assert back.shape == x.shape
+    assert np.abs(back - x).max() < 1e-3
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c["name"] for c in CASES])
+def test_forced_plans_match_the_reference(runs, case):
+    ours = runs["port"][1]["plans"][case["name"]]
+    theirs = runs["ref"][1]["plans"][case["name"]]
+    assert ours["est_cost"] == pytest.approx(theirs["est_cost"], rel=1e-12)
+    fields = ("shape", "kind", "decomp", "mesh_axes", "mesh_shape",
+              "output_layout", "factors")
+    assert {f: ours[f] for f in fields} == {f: theirs[f] for f in fields}
+    if case["comm"] == "measure":     # timed on the port's own mesh
+        assert len(ours["comm"]) == len(theirs["comm"])
+        assert not {"auto", "measure"} & set(ours["comm"])
+    else:
+        assert ours["comm"] == theirs["comm"]
+
+
+@pytest.mark.parametrize("verdict", VERDICTS,
+                         ids=[v["name"] for v in VERDICTS])
+def test_free_verdicts_match_the_reference(runs, verdict):
+    ours = dict(runs["port"][1]["verdicts"][verdict["name"]])
+    theirs = dict(runs["ref"][1]["verdicts"][verdict["name"]])
+    assert ours.pop("est_cost") == pytest.approx(theirs.pop("est_cost"),
+                                                 rel=1e-12)
+    assert ours == theirs
+
+
+def test_dfft_wisdom_keys_match_the_reference(runs):
+    assert runs["ref"][1]["collective_lat"] == runs["hw"]["collective_lat"]
+    assert runs["port"][1]["keys"] == runs["ref"][1]["keys"]
+    assert len(runs["port"][1]["keys"]) == len(VERDICTS)
+
+
+def test_measured_planning_times_each_finalist_once(runs):
+    m = runs["port"][1]["measured"]
+    assert m["finalists_timed"] == 2          # local and slab over "fft"
+    assert m["comm_timed"] >= 3               # collective, agas, pipelined
+    assert m["timed_again"] == 0
+    assert m["again"] == m["plan"] and m["plan"]["measured_cost"] > 0
+    assert m["comm_keys"] == ["comm/slab/64x320/p8/r2c/tpu_v5e"]
+
+
+def test_measured_exchanges_land_in_wisdom(runs):
+    keys = runs["port"][1]["measure_keys"]
+    assert keys == sorted(
+        ["comm/factor1d/65536/256x256/p8/tpu_v5e"]
+        + [f"comm/pencil/8x6x5x8/mesh2x2x2/c2c/ax{j}/tpu_v5e"
+           for j in range(3)])
+
+
+def test_every_rank_holds_the_same_verdicts(runs):
+    agree = runs["port"][1]["ranks_agree"]
+    assert len(agree) == 8 and all(agree)
+
+
+def test_transposed_layout_saves_an_exchange_each_way(runs):
+    assert runs["port"][1]["exchanges"] == {"natural": [2, 2],
+                                            "transposed": [1, 1]}
+
+
+@pytest.mark.parametrize("spec", ["collective", "pipelined:2"])
+def test_backend_gathers_stack_every_rank(runs, spec):
+    got = runs["port"][0][f"gather/{spec}"]
+    base = np.arange(12.).reshape(4, 3)
+    want = np.stack([(base + 100 * r) - 1j * (base + 100 * r)
+                     for r in range(8)])
+    np.testing.assert_array_equal(got, want)
+
+
+if __name__ == "__main__":
+    {"ref": ref_main, "port": port_main}[sys.argv[1]](*sys.argv[2:])

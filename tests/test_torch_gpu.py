@@ -6,11 +6,15 @@ so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import datetime
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
-from repro_torch import Planner, fft_conv, fftn, ifftn, irfftn, kernels, rfftn
+from repro_torch import (Planner, collect, distribute, fft_conv, fftn, ifftn,
+                         irfftn, kernels, make_mesh, plan_nd, rfftn)
 from repro_torch.kernels import (complex_multiply, complex_multiply_ref,
                                  fft_four_step, fft_four_step_ref,
                                  fftconv_fused, fftconv_fused_ref, transpose,
@@ -243,3 +247,80 @@ def test_variants_on_the_card_match_torch_fft(cuda, name):
     assert out[0].is_contiguous() and out[1].is_contiguous()
     assert (out[0].double() - ref.real).abs().max().item() <= tol
     assert (out[1].double() - ref.imag).abs().max().item() <= tol
+
+
+@pytest.fixture(scope="module")
+def nccl_meshes():
+    """NCCL at world size 1 in this process: a (1,) and a (1, 1) mesh on
+    the card (every exchange a local copy through NCCL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield {"m1": make_mesh((1,), ("fft",)),
+               "m11": make_mesh((1, 1), ("mx", "my"))}
+    finally:
+        dist.destroy_process_group()
+
+
+def _within(pair, ref, what):
+    tol = 2e-4 * ref.abs().max().item()
+    err = max((pair[0].double() - ref.real).abs().max().item(),
+              (pair[1].double() - ref.imag).abs().max().item())
+    assert err <= tol, (what, err, tol)
+
+
+@pytest.mark.parametrize("comm,layout", [("collective", "natural"),
+                                         ("pipelined:4", "natural"),
+                                         ("agas", "natural"),
+                                         ("collective", "transposed")])
+def test_world_of_one_nccl_slab_matches_torch_fft(nccl_meshes, comm, layout):
+    m, planner = nccl_meshes["m1"], Planner(backends=("hopper",))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(2, 256, 384, device="cuda", generator=g)
+    nd = plan_nd((256, 384), "r2c", mesh=m, decomp="slab", comm=comm,
+                 output_layout=layout, planner=planner)
+    local = distribute(x, nd, m)
+    kernels.reset_launch_counts()
+    spec = rfftn(local, mesh=m, plan=nd, planner=planner)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["four_step_fft"] >= 1 and counts["batched_transpose"] >= 2
+    _within(collect(spec, nd, m), torch.fft.rfftn(x.double(), dim=(-2, -1)),
+            "slab")
+    back = collect(irfftn(spec, mesh=m, plan=nd, planner=planner), nd, m,
+                   spatial=True)
+    assert (back - x).abs().max().item() <= 2e-4 * x.abs().max().item()
+
+
+def test_world_of_one_nccl_pencil_and_factor1d_match_torch_fft(nccl_meshes):
+    planner = Planner(backends=("hopper",))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    z = torch.randn(32, 48, 64, device="cuda", generator=g,
+                    dtype=torch.complex64)
+    m = nccl_meshes["m11"]
+    nd = plan_nd(z.shape, "c2c", mesh=m, decomp="pencil", planner=planner)
+    kernels.reset_launch_counts()
+    spec = fftn(distribute(z, nd, m), mesh=m, plan=nd, planner=planner)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["four_step_fft"] == 3
+    _within(collect(spec, nd, m), torch.fft.fftn(z.to(torch.complex128)),
+            "pencil")
+    back = collect(ifftn(spec, mesh=m, plan=nd, planner=planner), nd, m,
+                   spatial=True)
+    _within(back, z.to(torch.complex128), "pencil round trip")
+
+    n = 1 << 16
+    z1 = torch.randn(n, device="cuda", generator=g, dtype=torch.complex64)
+    m = nccl_meshes["m1"]
+    nd = plan_nd((n,), "c2c", mesh=m, decomp="factor1d", planner=planner)
+    kernels.reset_launch_counts()
+    spec = fftn(distribute(z1, nd, m), mesh=m, plan=nd, planner=planner)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["four_step_fft"] == 2 and counts["complex_multiply"] == 1
+    _within(collect(spec, nd, m), torch.fft.fft(z1.to(torch.complex128)),
+            "factor1d")

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
                        r"(?!_torch)|from\s+repro\b(?!_torch))", re.M)
@@ -24,9 +26,27 @@ def test_import_loads_neither_jax_nor_the_reference():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.comm",
+                                    "repro_torch.core.dfft",
+                                    "repro_torch.core.api"])
+def test_the_distributed_modules_load_neither_jax_nor_the_reference(module):
+    """Each module of the distributed layer, imported alone with
+    torch.distributed, pulls in no JAX and nothing of the JAX package."""
+    code = (f"import sys, torch.distributed, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "examples" / "fft2d_distributed_torch.py"]
+    assert {"comm.py", "dfft.py", "api.py"} <= {f.name for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())

@@ -9,13 +9,16 @@ import pytest
 import torch
 
 from repro.core import algo as jalgo
+from repro.core import api as japi
 from repro.core import plan as jplan
 from repro.core import wisdom as jwisdom
 from repro_torch.convert import plan_from_reference
 from repro_torch.core import algo, plan, wisdom
 
-# the reference's TPU profile values, so both planners price alike
-TPU_VALUES = plan.HardwareSpec(**dataclasses.asdict(jplan.TPU_V5E))
+# the reference's TPU profile values (and its one collective latency), so
+# both planners price alike
+TPU_VALUES = plan.HardwareSpec(**dataclasses.asdict(jplan.TPU_V5E),
+                               collective_lat=japi.COLLECTIVE_LAT)
 RNG = np.random.default_rng(13)
 
 
