@@ -68,14 +68,43 @@ run from the root of a checkout. Phases, each of which raises on failure:
    which no local plan takes, torch.fft.fft), timed before and after, the
    NCCL all_to_all_single call of 1 KiB at world size 1, and trace one
    slab call; then destroy the process group;
+12. (still at world size 1 on NCCL) run FFTConvMixer(2048, 16) on
+   (4, 8192, 2048) with the sequence sharded over the (1,) mesh
+   (seq_axis_sharded=True, fft_conv_seq_sharded) with every comm
+   (collective, pipelined:4, agas, auto, measure), each call's launches
+   read alone (four-step 4, transpose 14, complex multiply 4), held within
+   2e-4*max|ref| of the unsharded mixer on the same weights and of a
+   float64 torch.fft mixer, and timed (medians of 10) beside the unsharded
+   mixer;
+13. the deprecated shims: fft2_slab/ifft2_slab r2c 16384^2 with no legacy
+   flag, keep_transposed/from_transposed and permuted_cols, and
+   fft3_pencil/ifft3_pencil/rfft3_pencil/irfft3_pencil 512^3 on the (1,)
+   and (1, 1) meshes, each forward equal to the plan_nd path on the same
+   block (its legacy layout undone), within 2e-4*max|ref| of float64
+   torch.fft, its round trip within 2e-4*max|x|, with the launches of
+   shim forward and back equal to those of the plan_nd path's;
+14. compressed_psum on a payload of the mixer's parameters at olmo-1b
+   width (12,617,728 f32) with every gather backend, auto and measure:
+   at world size 1 the sum is exactly this rank's dequantized payload and
+   the residual what quantization lost; timed (medians of 10); then the
+   process group is destroyed;
 11. spawn 4 ranks on the one card over gloo (which takes CUDA tensors;
    NCCL refuses two ranks on one GPU) and hold slab r2c 16384^2 on a (4,)
    mesh and pencil c2c 512^3 on a (2, 2) mesh, forward and back, against
-   float64 torch.fft in the same way; every rank ends and is joined.
+   float64 torch.fft in the same way; then, on the same ranks, phases 12-14
+   over them: the sharded mixer on (4,) against the unsharded mixer and
+   float64 on rank 0, the shims on (4,) and (2, 2) against the gathered
+   plan_nd path and float64, and compressed_psum (each rank its own
+   payload) against the sum of the dequantized payloads and the exact
+   sum; every rank ends and is joined.
 
-The last two lines are the kernel table as one JSON object, then the card
-label, then {"ok": true, "device": {...}}. It needs one GPU and exits
-non-zero, printing no result, without one.
+Phase 2 also holds the four-step, transpose and complex-multiply kernels
+at the blocks the sharded convolution hands them; phase 4 prints the
+H100 profile's estimate of the four-step pass beside its time and fails
+beyond 1.5x; phase 10 prints plan_nd's estimate-mode and measured-mode
+verdicts at the chip shapes. The last lines are the kernel table as one
+JSON object, then the card label, then {"ok": true, "device": {...}}. It
+needs one GPU and exits non-zero, printing no result, without one.
 """
 
 from __future__ import annotations
@@ -143,6 +172,21 @@ DIST_LAUNCHES = {
                "complex_multiply": 0, "fftconv_fused": 0},
     "factor1d": {"four_step_fft": 2, "batched_transpose": 12,
                  "complex_multiply": 2, "fftconv_fused": 0}}
+# phase 12: the mixer with its sequence sharded, each exchange setting,
+# and the kernel launches of one call at any p: the c2c passes along n1
+# and n2 of the activations and of the filters on the four-step kernel;
+# the (B, L, D) -> (B, D, L) move and back and, for each n1 pass (the two
+# forward ones and the inverse, on torch.matmul), two moves a pair member
+# on the transpose kernel; the twiddle of each forward and of the inverse
+# and the spectrum product on the complex multiply
+SHARDED_COMMS = ("collective", "pipelined:4", "agas", "auto", "measure")
+SHARDED_LAUNCHES = {"four_step_fft": 4, "batched_transpose": 14,
+                    "complex_multiply": 4, "fftconv_fused": 0}
+# phase 14: a payload the size of the mixer's parameters at olmo-1b width
+# (w_in, w_out, filt, skip)
+PSUM_N = MIXER_D * 2 * MIXER_D + MIXER_D * MIXER_D + MIXER_D * MIXER_RANK \
+    + MIXER_D
+PSUM_COMMS = ("collective", "pipelined:4", "agas", "auto", "measure")
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -350,6 +394,13 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
               f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s, "
               f"{fft_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the FFT's "
               f"operations [{label}]")
+        # the H100 profile prices the pass as its radix bound over fft_share
+        est = planners["hopper"].stage_seconds(n, "c2c", b) * 1e3
+        print(f"estimate four_step_fft {name} {shape}: {est:.3f} ms, "
+              f"{est / ms:.2f}x the kernel's time [{label}]")
+        if name == "rfftn column pass":
+            check(1 / 1.5 <= est / ms <= 1.5, f"the estimate of the "
+                  f"{name}, {est:.3f} ms, is not within 1.5x of {ms:.3f} ms")
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=bound_ms, bound_by=by)
         del xs, xc
@@ -515,6 +566,65 @@ def phase_conv_kernels(gen, factors, errs) -> dict:
           f"{scale:.3e})")
     return {"complex_multiply": cmul_path, "fftconv_fused": fused_path,
             "fftconv_fused_worst_rel": worst}
+
+
+def sharded_conv_blocks(planner):
+    """What fft_conv_seq_sharded hands the kernels on the mixer's path at
+    world size 1 (nf = 16384 split n1 x n2): the four-step gets the n1
+    pass (moved last) and the n2 pass of the activations, (B, D, n2, n1)
+    and (B, D, n1, n2), and of the filters, (D, n2, n1) and (D, n1, n2),
+    with the planner's factors of n1 and of n2; the complex multiply gets
+    the (n1, n2) twiddle against each (the spectrum product is
+    fft_conv's); the transpose the n1 moves of each and back."""
+    from repro_torch.core.fftconv import factor_split, next_fft_len
+    n1, n2 = factor_split(next_fft_len(2 * MIXER_S), 1)
+    f1 = planner.plan(n1, "c2c").factors
+    f2 = planner.plan(n2, "c2c").factors
+    leads = ((MIXER_B, MIXER_D), (MIXER_D,))
+    four = [(lead + (n2, n1), f1) for lead in leads] \
+        + [(lead + (n1, n2), f2) for lead in leads]
+    cmul = [(lead + (n1, n2), (n1, n2)) for lead in leads]
+    moves = [(math.prod(lead), a, b) for lead in leads
+             for a, b in ((n1, n2), (n2, n1))]
+    return four, cmul, moves
+
+
+def phase_sharded_conv_kernels(gen, planner, errs) -> None:
+    """The four-step, complex-multiply and transpose kernels against their
+    plain versions at the blocks of the sharded mixer's path, added to
+    ``errs``' entries for them."""
+    four, cmul, moves = sharded_conv_blocks(planner)
+    for shape, f in four:
+        x = (randn(shape, gen), randn(shape, gen))
+        err, scale = four_step_error(x, f)
+        check(err <= 1e-4 * scale, f"four_step_fft {shape} {f} (sharded "
+              f"conv): err {err} > 1e-4 * {scale}")
+        errs["four_step_fft"][f"sharded conv {shape} {f}"] = err
+        errs["four_step_worst_rel"] = max(errs["four_step_worst_rel"],
+                                          err / scale)
+        del x
+    for a_shape, b_shape in cmul:
+        a = (randn(a_shape, gen), randn(a_shape, gen))
+        b = (randn(b_shape, gen), randn(b_shape, gen))
+        err = cmul_error(a, b)
+        check(err <= 1e-5, f"complex_multiply {a_shape} x {b_shape} "
+              f"(sharded conv): err {err} > 1e-5")
+        errs["complex_multiply"] = max(errs["complex_multiply"], err)
+        del a, b
+    for block in moves:
+        errs["batched_transpose"][f"sharded conv {block}"] = \
+            transpose_error(randn(block, gen))
+    print(f"checked four_step_fft at the sharded conv's {four}, "
+          f"complex_multiply at its twiddles {cmul} (limit 1e-5) and "
+          f"batched_transpose (exact) at its moves {moves}")
+
+
+def mixer_reference(mixer, x) -> torch.Tensor:
+    """The mixer's output in float64, its convolution by torch.fft."""
+    v, gate, filt = mixer_parts(mixer, x)
+    conv = causal_conv(v.double(), filt.double())
+    return ((conv + v.double() * mixer.skip.double())
+            * torch.nn.functional.silu(gate.double())) @ mixer.w_out.double()
 
 
 def causal_conv(u, k) -> torch.Tensor:
@@ -984,9 +1094,11 @@ def phase_distributed_times(label, planner, gen, m1, m11) -> dict:
         base[decomp].append(again)
         print(f"time dist baseline {decomp} again: {again:.3f} ms [{label}]")
     dev = torch.device("cuda", torch.cuda.current_device())
-    lat = statistics.median(collective_latency(dev) for _ in range(5))
+    lat_runs = [collective_latency(dev) for _ in range(5)]
+    lat = statistics.median(lat_runs)
     print(f"time nccl all_to_all_single 1 KiB world size 1: "
-          f"{lat * 1e6:.2f} us a call (median of 5 runs of 200) [{label}]")
+          f"{lat * 1e6:.2f} us a call (median of 5 runs of 200: "
+          f"{', '.join(f'{r * 1e6:.2f}' for r in lat_runs)} us) [{label}]")
     # the factor1d twiddle: one block built alone, and the forward call with
     # both built anew in every call (as before they were cached)
     twiddle = dfft._factor1d_twiddle_block
@@ -1016,6 +1128,407 @@ def phase_distributed_times(label, planner, gen, m1, m11) -> dict:
     torch.cuda.empty_cache()
     return {"times": times, "baselines": base, "nccl_call_s": lat,
             "twiddle_ms": tw_ms, "factor1d_uncached_ms": uncached}
+
+
+def plan_verdicts(planner, m1, m11) -> None:
+    """plan_nd's free verdicts at the chip shapes on the one card, in
+    estimate and in measured mode; raises where they differ."""
+    from repro_torch import plan_nd
+    for shape, kind, mesh in (((DIST_SLAB_N,) * 2, "r2c", m1),
+                              ((DIST_PENCIL_N,) * 3, "c2c", m11),
+                              ((1 << DIST_FACTOR1D_LOG2,), "c2c", m1)):
+        got = {mode: plan_nd(shape, kind, mesh=mesh, mode=mode,
+                             planner=planner)
+               for mode in ("estimate", "measured")}
+        verdicts = {mode: (nd.decomp, nd.mesh_axes, nd.comm)
+                    for mode, nd in got.items()}
+        check(verdicts["estimate"] == verdicts["measured"],
+              f"plan_nd {shape} {kind}: {verdicts}")
+        print(f"plan_nd {shape} {kind} on {mesh.mesh_dim_names}: estimate "
+              f"{verdicts['estimate']} ({got['estimate'].est_cost * 1e3:.3f}"
+              f" ms est), measured {verdicts['measured']}")
+
+
+def counted(fn):
+    """(fn's value, kernel launches of the call alone, its seconds)."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    val = fn()
+    torch.cuda.synchronize()
+    return val, kernels.launch_counts(), time.perf_counter() - t0
+
+
+def phase_sharded_mixer(label, planner, gen, m1) -> dict:
+    """FFTConvMixer at olmo-1b's width with the sequence sharded over the
+    (1,) mesh, every exchange setting, against the unsharded mixer and
+    float64, then timed beside the unsharded mixer."""
+    from repro_torch.models import FFTConvMixer
+    mixer = FFTConvMixer(MIXER_D, MIXER_RANK, planner=planner,
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(SEED),
+                         mesh=m1, axis="fft")
+    x = randn((MIXER_B, MIXER_S, MIXER_D), gen)
+    out = {}
+    with torch.no_grad():
+        local = mixer(x)
+        ref = mixer_reference(mixer, x)
+        tol_l = 2e-4 * local.abs().max().item()
+        tol_r = 2e-4 * ref.abs().max().item()
+        for comm in SHARDED_COMMS:
+            mixer.comm = comm
+            torch.cuda.reset_peak_memory_stats()
+            y, launches, seconds = counted(
+                lambda: mixer(x, seq_axis_sharded=True))
+            peak = torch.cuda.max_memory_allocated()
+            check(launches == SHARDED_LAUNCHES, f"sharded mixer {comm}: "
+                  f"launches {launches}, expected {SHARDED_LAUNCHES}")
+            err_l = (y - local).abs().max().item()
+            err_r = (y.double() - ref).abs().max().item()
+            check(err_l <= tol_l and err_r <= tol_r
+                  and torch.isfinite(y).all().item(),
+                  f"sharded mixer {comm}: err {err_l} (tol {tol_l}) against "
+                  f"the unsharded mixer, {err_r} (tol {tol_r}) against "
+                  "float64")
+            print(f"sharded mixer FFTConvMixer({MIXER_D}, {MIXER_RANK}) "
+                  f"{tuple(x.shape)} on (1,) comm={comm}: err {err_l:.4e} "
+                  f"against the unsharded mixer (tol {tol_l:.4e}), "
+                  f"{err_r:.4e} against float64 (tol {tol_r:.4e}); "
+                  f"launches {launches}; {seconds:.3f} s incl. first call; "
+                  f"peak {peak / 2 ** 30:.2f} GiB")
+            out[comm] = launches
+            del y
+        del ref
+        times = {"unsharded": time_variant(lambda: mixer(x), 10)[0]}
+        for comm in SHARDED_COMMS:
+            mixer.comm = comm
+            times[comm] = time_variant(
+                lambda: mixer(x, seq_axis_sharded=True), 10)[0]
+        times["unsharded again"] = time_variant(lambda: mixer(x), 10)[0]
+        print(f"time sharded mixer {tuple(x.shape)} on (1,): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items()) + f" [{label}]")
+        mixer.comm = "collective"
+        phase_profile(label, [("sharded mixer on (1,) collective",
+                               lambda: mixer(x, seq_axis_sharded=True))])
+    del mixer, x, local
+    torch.cuda.empty_cache()
+    return {"launches": out, "times": times}
+
+
+def fwd_back(forward, inverse):
+    spec = forward()
+    return spec, inverse(spec)
+
+
+def phase_shims(label, planner, gen, m1, m11) -> dict:
+    """The six deprecated shims at the chip shapes on the one card: each
+    forward equal to the plan_nd path on the same block, within
+    2e-4*max|ref| of float64 torch.fft, its round trip within 2e-4*max|x|,
+    and the launches of shim forward and back those of the plan_nd
+    path's."""
+    import warnings
+    from repro_torch import fftn, ifftn, irfftn, plan_nd, rfftn
+    from repro_torch.core import dfft
+    out = {}
+
+    def report(name, same, err, tol, rt, x_tol, launches, base, seconds,
+               exact=True):
+        check(launches == base, f"{name}: launches {launches}, the plan_nd "
+              f"path's {base}")
+        check(same == 0.0 if exact else same <= tol, f"{name}: differs "
+              f"from the plan_nd path by {same}")
+        check(err <= tol, f"{name}: err {err} > {tol}")
+        check(rt <= x_tol, f"{name}: round trip err {rt} > {x_tol}")
+        print(f"shim {name}: err {err:.4e} (tol {tol:.4e}), from the "
+              f"plan_nd path {same:.3e}, round trip {rt:.3e} (tol "
+              f"{x_tol:.3e}); launches {launches}; {seconds:.3f} s forward "
+              f"and back [{label}]")
+        out[name] = launches
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        n = DIST_SLAB_N
+        x = randn((n, n), gen)
+        nd = plan_nd(x.shape, "r2c", mesh=m1, decomp="slab",
+                     comm="collective", planner=planner)
+        (want, _), base, _ = counted(lambda: fwd_back(
+            lambda: rfftn(x, mesh=m1, plan=nd, planner=planner),
+            lambda c: irfftn(c, mesh=m1, plan=nd, planner=planner)))
+        ref = torch.fft.rfft2(x.double())
+        tol, x_tol = 2e-4 * ref.abs().max().item(), \
+            2e-4 * x.abs().max().item()
+        # row k1*n2 + k2 of permuted columns holds frequency k2*n1 + k1
+        n1, n2 = planner.plan(n, "c2c", permuted=True).factors
+        perm = torch.arange(n, device="cuda").view(n2, n1).T.reshape(-1)
+        for flags in ({}, {"keep_transposed": True},
+                      {"permuted_cols": True}):
+            kt = flags.get("keep_transposed", False)
+            pc = flags.get("permuted_cols", False)
+            (spec, back), launches, seconds = counted(lambda: fwd_back(
+                lambda: dfft.fft2_slab(x, m1, "fft", planner, **flags),
+                lambda c: dfft.ifft2_slab(c, m1, "fft", n, planner,
+                                          from_transposed=kt,
+                                          permuted_cols=pc)))
+            got = tuple(t.T for t in spec) if kt else spec
+            expect = tuple(t[perm] for t in want) if pc else want
+            same = max((a - b).abs().max().item()
+                       for a, b in zip(got, expect))
+            err = max_err(got, ref[perm] if pc else ref)
+            rt = (back - x).abs().max().item()
+            report(f"fft2_slab/ifft2_slab r2c {n}^2 on (1,) "
+                   f"{','.join(flags) or 'no flag'}", same, err, tol, rt,
+                   x_tol, launches, base, seconds, exact=not pc)
+            del spec, back, got, expect
+        del x, want, ref
+        torch.cuda.empty_cache()
+
+        shape, axes = (DIST_PENCIL_N,) * 3, ("mx", "my")
+        z = dist_input("pencil", gen)
+        ndc = plan_nd(shape, "c2c", mesh=m11, decomp="pencil",
+                      comm="collective", planner=planner)
+        (want, _), base, _ = counted(lambda: fwd_back(
+            lambda: fftn(z, mesh=m11, plan=ndc, planner=planner),
+            lambda c: ifftn(c, mesh=m11, plan=ndc, planner=planner)))
+        (spec, back), launches, seconds = counted(lambda: fwd_back(
+            lambda: dfft.fft3_pencil(z, m11, axes, planner),
+            lambda c: dfft.ifft3_pencil(c, m11, axes, planner)))
+        ref = torch.fft.fftn(torch.complex(z[0].double(), z[1].double()))
+        report(f"fft3_pencil/ifft3_pencil c2c {DIST_PENCIL_N}^3 on (1, 1)",
+               max((a - b).abs().max().item() for a, b in zip(spec, want)),
+               max_err(spec, ref), 2e-4 * ref.abs().max().item(),
+               max((b - a).abs().max().item() for a, b in zip(z, back)),
+               2e-4 * max(a.abs().max().item() for a in z), launches, base,
+               seconds)
+        del z, want, spec, back, ref
+        xr = randn(shape, gen)
+        ndr = plan_nd(shape, "r2c", mesh=m11, decomp="pencil",
+                      comm="collective", planner=planner)
+        (want, _), base, _ = counted(lambda: fwd_back(
+            lambda: rfftn(xr, mesh=m11, plan=ndr, planner=planner),
+            lambda c: irfftn(c, mesh=m11, plan=ndr, planner=planner)))
+        (spec, back), launches, seconds = counted(lambda: fwd_back(
+            lambda: dfft.rfft3_pencil(xr, m11, axes, planner),
+            lambda c: dfft.irfft3_pencil(c, m11, axes, DIST_PENCIL_N,
+                                         planner)))
+        ref = torch.fft.rfftn(xr.double())
+        report(f"rfft3_pencil/irfft3_pencil r2c {DIST_PENCIL_N}^3 on (1, 1)",
+               max((a - b).abs().max().item() for a, b in zip(spec, want)),
+               max_err(spec, ref), 2e-4 * ref.abs().max().item(),
+               (back - xr).abs().max().item(), 2e-4 * xr.abs().max().item(),
+               launches, base, seconds)
+        del xr, want, spec, back, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_psum(label, gen, m1) -> dict:
+    """compressed_psum of a PSUM_N payload on the (1,) mesh, every gather
+    backend, auto and measure: the sum is this rank's dequantized payload
+    and the residual what quantization lost, exactly; then timed."""
+    from repro_torch.optim import (choose_psum_comm, compressed_psum,
+                                   dequantize_int8, quantize_int8)
+    group = m1.get_group("fft")
+    x = randn((PSUM_N,), gen)
+    q, scale, pad = quantize_int8(x)
+    deq = dequantize_int8(q, scale, pad, x.shape)
+    out = {}
+    for comm in PSUM_COMMS:
+        spec = choose_psum_comm(m1, "fft", x.shape, mode=comm)
+        total, err = compressed_psum(x, group, comm=spec)
+        check(torch.equal(total, deq) and torch.equal(err, x - deq),
+              f"compressed_psum {comm}: not the dequantized payload")
+        ms = time_variant(lambda: compressed_psum(x, group, comm=spec),
+                          10)[0]
+        out[comm] = dict(spec=spec, ms=ms)
+        print(f"psum compressed_psum {PSUM_N} f32 on (1,) comm={comm} -> "
+              f"{spec}: the dequantized payload exactly (quantization "
+              f"error {err.abs().max().item():.4e}, half step "
+              f"{scale.float().max().item() / 2:.4e}); {ms:.3f} ms (median "
+              f"of 10) [{label}]")
+    del x, q, scale, deq
+    return out
+
+
+def gather_blocks(t, mesh, axes):
+    """Every rank's block of ``t`` concatenated along each (tensor axis,
+    mesh axis name) of ``axes`` in turn; every rank of the mesh calls it."""
+    from repro_torch.core import comm
+    for axis, name in axes:
+        work, buf = comm._gather_start(t, mesh.get_group(name),
+                                       comm.mesh_sizes(mesh)[name])
+        work.wait()
+        t = comm._unlead(buf, axis)
+    return t
+
+
+def gloo_sharded_mixer(rank, mesh, planner, gen) -> list:
+    """Phase 12 over the gloo ranks: the mixer with its sequence sharded
+    over (4,), each rank its block; rank 0 holds the gathered output
+    against the unsharded mixer and float64. Returns rank 0's lines."""
+    from repro_torch.models import FFTConvMixer
+    mixer = FFTConvMixer(MIXER_D, MIXER_RANK, planner=planner,
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(SEED),
+                         mesh=mesh, axis="fft")
+    x = randn((MIXER_B, MIXER_S, MIXER_D), gen)     # the same on every rank
+    w = MIXER_S // GLOO_RANKS
+    block = x[:, rank * w:(rank + 1) * w].contiguous()
+    with torch.no_grad():
+        y, launches, seconds = counted(
+            lambda: mixer(block, seq_axis_sharded=True))
+        check(launches == SHARDED_LAUNCHES, f"gloo rank {rank} sharded "
+              f"mixer: launches {launches}, expected {SHARDED_LAUNCHES}")
+        ms = time_variant(lambda: mixer(block, seq_axis_sharded=True), 3)[0]
+        full = gather_blocks(y, mesh, [(1, "fft")])
+        if rank != 0:
+            return []
+        local = mixer(x)
+        ref = mixer_reference(mixer, x)
+    tol_l = 2e-4 * local.abs().max().item()
+    tol_r = 2e-4 * ref.abs().max().item()
+    err_l = (full - local).abs().max().item()
+    err_r = (full.double() - ref).abs().max().item()
+    check(err_l <= tol_l and err_r <= tol_r, f"gloo sharded mixer: err "
+          f"{err_l} (tol {tol_l}) against the unsharded mixer, {err_r} (tol "
+          f"{tol_r}) against float64")
+    return [f"gloo{GLOO_RANKS} sharded mixer FFTConvMixer({MIXER_D}, "
+            f"{MIXER_RANK}) {tuple(x.shape)} on (4,) (block "
+            f"{tuple(block.shape)} a rank): err {err_l:.4e} against the "
+            f"unsharded mixer (tol {tol_l:.4e}), {err_r:.4e} against float64 "
+            f"(tol {tol_r:.4e}); rank 0 launches {launches}; {seconds:.3f} s "
+            f"first call, {ms:.3f} ms (median of 3)"]
+
+
+def gloo_shims(rank, meshes, planner, gen) -> list:
+    """Phase 13 over the gloo ranks: fft2_slab/ifft2_slab r2c 16384^2 on
+    (4,) with each legacy flag and the pencil shims 512^3 on (2, 2), each
+    rank its block; rank 0 holds the gathered forward against the gathered
+    plan_nd path and float64, and the gathered round trip against the
+    input. Returns rank 0's lines."""
+    import warnings
+    from repro_torch import collect, distribute, fftn, plan_nd, rfftn
+    from repro_torch.core import dfft
+    m4, m22 = meshes["(4,)"], meshes["(2, 2)"]
+    lines = []
+
+    def report(name, got, want, ref, back, data):
+        tol = 2e-4 * ref.abs().max().item()
+        pair = isinstance(data, tuple)
+        x_tol = 2e-4 * (max(a.abs().max().item() for a in data) if pair
+                        else data.abs().max().item())
+        same = max((a - b).abs().max().item() for a, b in zip(got, want))
+        err = max_err(got, ref)
+        rt = (max((a - b).abs().max().item() for a, b in zip(back, data))
+              if pair else (back - data).abs().max().item())
+        check(same <= tol and err <= tol and rt <= x_tol, f"gloo shim "
+              f"{name}: from the plan_nd path {same}, err {err} (tol {tol}),"
+              f" round trip {rt} (tol {x_tol})")
+        lines.append(f"gloo{GLOO_RANKS} shim {name}: err {err:.4e} (tol "
+                     f"{tol:.4e}), from the plan_nd path {same:.3e}, round "
+                     f"trip {rt:.3e} (tol {x_tol:.3e})")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        n = DIST_SLAB_N
+        x = randn((n, n), gen)                      # the same on every rank
+        nd = plan_nd(x.shape, "r2c", mesh=m4, decomp="slab",
+                     comm="collective", planner=planner)
+        local = distribute(x, nd, m4)
+        want = collect(rfftn(local, mesh=m4, plan=nd, planner=planner), nd,
+                       m4)
+        n1, n2 = planner.plan(n, "c2c", permuted=True).factors
+        perm = torch.arange(n, device="cuda").view(n2, n1).T.reshape(-1)
+        ref = torch.fft.rfft2(x.double()) if rank == 0 else None
+        for flags in ({}, {"keep_transposed": True},
+                      {"permuted_cols": True}):
+            kt = flags.get("keep_transposed", False)
+            pc = flags.get("permuted_cols", False)
+            spec = dfft.fft2_slab(local, m4, "fft", planner, **flags)
+            back = dfft.ifft2_slab(spec, m4, "fft", n, planner,
+                                   from_transposed=kt, permuted_cols=pc)
+            got = tuple(gather_blocks(t, m4, [(1 if kt else 0, "fft")])
+                        for t in spec)
+            back = gather_blocks(back, m4, [(0, "fft")])
+            if rank == 0:
+                if kt:      # the folded (w, 4 n) layout back to (n, 4 w)
+                    w = got[0].shape[0]
+                    got = tuple(t.view(w, GLOO_RANKS, n).permute(2, 1, 0)
+                                .reshape(n, GLOO_RANKS * w) for t in got)
+                got = tuple(t[:, :n // 2 + 1] for t in got)
+                report(f"fft2_slab/ifft2_slab r2c {n}^2 on (4,) "
+                       f"{','.join(flags) or 'no flag'}", got,
+                       tuple(t[perm] for t in want) if pc else want,
+                       ref[perm] if pc else ref, back, x)
+            del spec, back, got
+        del x, local, want, ref
+        torch.cuda.empty_cache()
+
+        shape, axes = (DIST_PENCIL_N,) * 3, ("mx", "my")
+        z = dist_input("pencil", gen)
+        xr = randn(shape, gen)
+        for kind, data in (("c2c", z), ("r2c", xr)):
+            nd = plan_nd(shape, kind, mesh=m22, decomp="pencil",
+                         comm="collective", planner=planner)
+            local = distribute(data, nd, m22)
+            run = fftn if kind == "c2c" else rfftn
+            want = collect(run(local, mesh=m22, plan=nd, planner=planner),
+                           nd, m22)
+            if kind == "c2c":
+                spec = dfft.fft3_pencil(local, m22, axes, planner)
+                back = dfft.ifft3_pencil(spec, m22, axes, planner)
+                name = f"fft3_pencil/ifft3_pencil c2c {DIST_PENCIL_N}^3"
+            else:
+                spec = dfft.rfft3_pencil(local, m22, axes, planner)
+                back = dfft.irfft3_pencil(spec, m22, axes, DIST_PENCIL_N,
+                                          planner)
+                name = f"rfft3_pencil/irfft3_pencil r2c {DIST_PENCIL_N}^3"
+            got = collect(spec, nd, m22)
+            back = collect(back, nd, m22, spatial=True)
+            if rank == 0:
+                report(name + " on (2, 2)", got, want,
+                       dist_reference(nd, data), back, data)
+            del local, want, spec, back, got
+        del z, xr
+    torch.cuda.empty_cache()
+    return lines
+
+
+def gloo_psum(rank, mesh) -> list:
+    """Phase 14 over the gloo ranks: compressed_psum of a PSUM_N payload,
+    each rank its own, every gather backend, auto and measure; rank 0
+    holds the sum against the sum of the dequantized payloads (1e-6 of
+    its max: the float32 order of the sum) and the exact sum (the
+    reference's bounds). Returns rank 0's lines."""
+    from repro_torch.optim import (choose_psum_comm, compressed_psum,
+                                   dequantize_int8, quantize_int8)
+    group = mesh.get_group("fft")
+    xs = [torch.randn(PSUM_N, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 10 + r)) for r in range(GLOO_RANKS)]
+    deq = sum(dequantize_int8(*quantize_int8(x), x.shape).double()
+              for x in xs)
+    exact = sum(x.double() for x in xs)
+    lines = []
+    for comm in PSUM_COMMS:
+        spec = choose_psum_comm(mesh, "fft", (PSUM_N,), mode=comm)
+        total, err = compressed_psum(xs[rank], group, comm=spec)
+        ms = time_variant(lambda: compressed_psum(xs[rank], group,
+                                                  comm=spec), 3)[0]
+        if rank != 0:
+            continue
+        off = (total.double() - deq).abs().max().item()
+        rel = ((total.double() - exact).abs() / (exact.abs() + 1e-3))
+        med = rel.median().item()
+        worst = err.abs().max().item()
+        check(off <= 1e-6 * deq.abs().max().item() and med < 0.02
+              and worst < 0.05, f"gloo compressed_psum {comm}: {off} from "
+              f"the dequantized sum, median rel {med}, residual {worst}")
+        lines.append(f"gloo{GLOO_RANKS} psum compressed_psum {PSUM_N} f32 a "
+                     f"rank on (4,) comm={comm} -> {spec}: {off:.3e} from the "
+                     f"sum of the dequantized payloads, median rel err "
+                     f"{med:.3e} against the exact sum, residual "
+                     f"{worst:.3e}; {ms:.3f} ms (median of 3)")
+    return lines
 
 
 def gloo_rank(rank: int, store_path: str, out_path: str) -> None:
@@ -1104,8 +1617,17 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
                                  peak_gib=peak / 2 ** 30)
             del data, local, spec, back, full
             torch.cuda.empty_cache()
+        # phases 12-14 on the same ranks
+        t0 = time.perf_counter()
+        extra = gloo_sharded_mixer(rank, meshes["(4,)"], planner, gen)
+        torch.cuda.empty_cache()
+        extra += gloo_shims(rank, meshes, planner, gen)
+        extra += gloo_psum(rank, meshes["(4,)"])
         if rank == 0:
-            Path(out_path).write_text(json.dumps(out))
+            extra.append(f"gloo{GLOO_RANKS} phases 12-14 took "
+                         f"{time.perf_counter() - t0:.1f} s")
+            Path(out_path).write_text(json.dumps({"runs": out,
+                                                  "extra": extra}))
     finally:
         dist.destroy_process_group()
 
@@ -1128,13 +1650,15 @@ def phase_gloo_ranks() -> dict:
                       file=sys.stderr)
             raise
         out = json.loads(Path(out_path).read_text())
-    for name, r in out.items():
+    for name, r in out["runs"].items():
         print(f"gloo{GLOO_RANKS} {name} on {r['mesh']} (block "
               f"{tuple(r['block'])} a rank): err {r['err']:.4e} (tol "
               f"{r['tol']:.4e}), round trip {r['round_trip']:.3e} (tol "
               f"{r['round_trip_tol']:.3e}); rank 0 launches {r['launches']},"
               f" peak {r['peak_gib']:.2f} GiB; {r['seconds']:.3f} s forward "
               "and back, first call")
+    for line in out["extra"]:
+        print(line)
     return out
 
 
@@ -1166,9 +1690,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cal = measure()
     print(f"calibration: matmul f32 {cal['matmul_f32_flops'] / 1e12:.2f} "
-          f"TFLOP/s, copy {cal['copy_bytes_per_s'] / 1e12:.3f} TB/s "
-          f"(H100 profile: {H100.flops / 1e12:.2f} TFLOP/s, "
-          f"{H100.hbm_bw / 1e12:.3f} TB/s) [{label}]")
+          f"TFLOP/s, copy {cal['copy_bytes_per_s'] / 1e12:.3f} TB/s, "
+          f"four-step share of its bound {cal['four_step_share']:.4f} at "
+          f"{cal['four_step_ms']:.3f} ms (H100 profile: "
+          f"{H100.flops / 1e12:.2f} TFLOP/s, {H100.hbm_bw / 1e12:.3f} TB/s, "
+          f"fft_share {H100.fft_share}) [{label}]")
 
     planner = Planner(backends=("hopper",))
     for n in (16384, 512):
@@ -1183,6 +1709,7 @@ def main() -> int:
     errs = phase_kernels(gen, main_shapes)
     conv_factors = planner.plan(2 * MIXER_S, "c2c", permuted=True).factors
     errs.update(phase_conv_kernels(gen, conv_factors, errs))
+    phase_sharded_conv_kernels(gen, planner, errs)
     print("kernels " + json.dumps(errs))
 
     # phase 3: the N-D FFT path at real size
@@ -1232,15 +1759,25 @@ def main() -> int:
         phase_distributed(planner, gen, m1, m11)
         t9 = time.perf_counter()
         phase_distributed_times(label, planner, gen, m1, m11)
+        plan_verdicts(planner, m1, m11)
+        t10 = time.perf_counter()
+        # phases 12-14: the sharded mixer, the shims and the compressed
+        # all-reduce, still at world size 1 on NCCL
+        phase_sharded_mixer(label, planner, gen, m1)
+        t12 = time.perf_counter()
+        phase_shims(label, planner, gen, m1, m11)
+        t13 = time.perf_counter()
+        phase_psum(label, gen, m1)
     finally:
         dist.destroy_process_group()
         del store
-    t10 = time.perf_counter()
+    t14 = time.perf_counter()
 
-    # phase 11: four ranks on the one card over gloo
+    # phase 11: four ranks on the one card over gloo (with phases 12-14)
     phase_gloo_ranks()
     print(f"dist phases: 9 took {t9 - t0:.1f} s, 10 took {t10 - t9:.1f} s, "
-          f"11 took {time.perf_counter() - t10:.1f} s")
+          f"12 took {t12 - t10:.1f} s, 13 took {t13 - t12:.1f} s, 14 took "
+          f"{t14 - t13:.1f} s, 11 took {time.perf_counter() - t14:.1f} s")
 
     head = times["rfftn column pass"]
     table = {"kernels": [

@@ -6,10 +6,13 @@
 The first prints one JSON object: the card's name and power limit (as
 ``nvidia-smi`` reports them), the float32 ``torch.matmul`` rate with TF32 off
 (an 8192^3 product) and the device-to-device copy rate of 1 GiB (bytes read
-plus bytes written), each the median of 10 timed runs after warm-up, and the
-cost of one NCCL ``all_to_all_single`` call of 1 KiB at world size 1. These
-are the ``flops``, ``hbm_bw`` and ``collective_lat`` of
-``repro_torch.core.plan.H100``. It needs a GPU. With ``--gloo`` it measures
+plus bytes written), each the median of 10 timed runs after warm-up, the
+four-step kernel's share of its radix-FFT bound at (8193, 16384), and the
+cost of one NCCL ``all_to_all_single`` call of 1 KiB at world size 1 (the
+median of 5 runs of 200 calls, with the 5). These are the ``flops``,
+``hbm_bw``, ``fft_share`` and ``collective_lat`` of
+``repro_torch.core.plan.H100`` (whose ``collective_lat`` is the median
+across 4 cards, from ``scripts/dist_times.py``). It needs a GPU. With ``--gloo`` it measures
 only the call cost of gloo on the CPU, the ``collective_lat`` of
 ``CPU_LOCAL``.
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import datetime
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -72,11 +76,29 @@ def measure() -> dict:
         nbytes = 2 * src.numel() * src.element_size()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    return {"card": card_label(),
-            "matmul_f32_flops": 2.0 * n ** 3 / (mm_ms * 1e-3),
-            "matmul_ms": mm_ms,
-            "copy_bytes_per_s": nbytes / (copy_ms * 1e-3),
-            "copy_ms": copy_ms}
+    return dict({"card": card_label(),
+                 "matmul_f32_flops": 2.0 * n ** 3 / (mm_ms * 1e-3),
+                 "matmul_ms": mm_ms,
+                 "copy_bytes_per_s": nbytes / (copy_ms * 1e-3),
+                 "copy_ms": copy_ms}, **four_step_share())
+
+
+def four_step_share(hw=None) -> dict:
+    """The four-step kernel's share of its radix-FFT bound,
+    max(5*B*n*log2(n) / flops, 16*B*n / hbm_bw) at the profile's (default
+    ``H100``'s) rates, at the rfftn 16384^2 column pass: B = 8193 rows of
+    n = 16384, factors (128, 128). The ``fft_share`` the estimate prices
+    the kernel's passes with."""
+    from .core.plan import H100
+    from .kernels.dft_matmul import fft_four_step
+    hw = hw or H100
+    b, n = 8193, 16384
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = tuple(torch.randn(b, n, device="cuda", generator=g) for _ in "ri")
+    ms = time_ms(lambda: fft_four_step(x, (128, 128)))
+    bound_s = max(5.0 * b * n * math.log2(n) / hw.flops,
+                  16.0 * b * n / hw.hbm_bw)
+    return {"four_step_ms": ms, "four_step_share": bound_s / (ms * 1e-3)}
 
 
 def collective_latency(device: torch.device, group=None,
@@ -100,25 +122,24 @@ def collective_latency(device: torch.device, group=None,
     return (time.perf_counter() - t0) / reps
 
 
-def world_of_one_latency(backend: str) -> float:
-    """Median of 5 :func:`collective_latency` runs at world size 1 in a
-    process group of its own (an in-process store, no sockets): NCCL on
-    the current card, or gloo on the CPU."""
+def world_of_one_latency(backend: str) -> list:
+    """5 :func:`collective_latency` runs at world size 1 in a process group
+    of its own (an in-process store, no sockets): NCCL on the current
+    card, or gloo on the CPU."""
     dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                             world_size=1,
                             timeout=datetime.timedelta(seconds=60))
     device = torch.device("cuda", torch.cuda.current_device()) \
         if backend == "nccl" else torch.device("cpu")
     try:
-        return statistics.median(collective_latency(device)
-                                 for _ in range(5))
+        return [collective_latency(device) for _ in range(5)]
     finally:
         dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--gloo"]:
-        print(json.dumps({"gloo_all_to_all_s": world_of_one_latency("gloo")}))
-    else:
-        print(json.dumps(dict(measure(), nccl_all_to_all_s=
-                              world_of_one_latency("nccl"))))
+    backend = "gloo" if sys.argv[1:] == ["--gloo"] else "nccl"
+    runs = world_of_one_latency(backend)
+    lat = {f"{backend}_all_to_all_s": statistics.median(runs),
+           f"{backend}_all_to_all_runs_s": runs}
+    print(json.dumps(lat if backend == "gloo" else dict(measure(), **lat)))

@@ -57,13 +57,14 @@ def nd_plan_from_reference(d: dict) -> NdPlan:
 
 def fftconv_mixer_from_reference(p: Mapping[str, np.ndarray],
                                  planner: Optional[Planner] = None,
-                                 device=None) -> FFTConvMixer:
+                                 device=None, **sharding) -> FFTConvMixer:
     """The reference's FFT-conv mixer parameters (``fftconv_meta`` as
     ``init_tree`` makes them, as numpy arrays: ``w_in`` (d, 2d), ``filt``
     (d, rank), ``skip`` (d,), ``w_out`` (d, d)) as an ``FFTConvMixer`` on
-    ``device`` (None: the GPU)."""
+    ``device`` (None: the GPU). ``sharding``: the mixer's ``mesh``,
+    ``axis`` and ``comm``."""
     d, rank = np.shape(p["filt"])
-    mixer = FFTConvMixer(d, rank, planner=planner, device=device)
+    mixer = FFTConvMixer(d, rank, planner=planner, device=device, **sharding)
     with torch.no_grad():
         for name, param in mixer.named_parameters():
             value = torch.from_numpy(np.array(p[name], np.float32))

@@ -138,23 +138,33 @@ class NdPlan:
 # ---------------------------------------------------------------------------
 
 
-def _estimate_nd(plan: NdPlan, hw, on_mesh: bool) -> float:
+def _estimate_nd(plan: NdPlan, hw, on_mesh: bool,
+                 planner: Optional[Planner] = None) -> float:
     """Roofline seconds for one execution of ``plan`` on ``hw``: per-device
-    compute is max(flops, HBM passes), each redistribution charges its wire
-    bytes through one link plus ``hw.collective_lat``, and a local plan on
-    a mesh charges one gather of the whole array."""
+    compute is max(the DFT stages, HBM passes), each redistribution charges
+    its wire bytes through one link plus ``hw.collective_lat``, and a local
+    plan on a mesh charges one gather of the whole array. The stages cost
+    the reference's dense four-step flops, or, for a profile with
+    ``fft_share`` and a planner, the planner's own 1D price of each."""
     d = len(plan.shape)
     padded = plan.padded_spectrum_shape
     elems = float(math.prod(padded))
     bytes_pair = elems * 8.0                       # (re, im) f32
-    if plan.decomp == "factor1d":                  # two planned 1D stages
-        stage_macs = fac_sum(plan.factors[0]) + fac_sum(plan.factors[1])
+    # (length, kind, rows) of each planned 1D stage
+    if plan.decomp == "factor1d":
+        stages = [(n, "c2c", elems / n) for n in plan.factors]
     else:
-        stage_macs = sum(fac_sum(n) for n in plan.shape)
-    flops = 8.0 * elems * stage_macs
+        stages = [(n, "c2c", elems / w) for n, w in zip(plan.shape, padded)]
+        if plan.kind == "r2c" and plan.shape[-1] % 2 == 0:
+            stages[-1] = (plan.shape[-1], "r2c", stages[-1][2])
+    if planner is not None and hw.fft_share:
+        t_stages = sum(planner.stage_seconds(n, kind, rows)
+                       for n, kind, rows in stages)
+    else:
+        t_stages = 8.0 * elems * sum(fac_sum(n) for n, _, _ in stages) \
+            / hw.flops
     devices = max(int(math.prod(plan.mesh_shape or (1,))), 1)
-    t_comp = max(flops / hw.flops,
-                 (d + 1) * bytes_pair / hw.hbm_bw) / devices
+    t_comp = max(t_stages, (d + 1) * bytes_pair / hw.hbm_bw) / devices
     t_comm = 0.0
     lat = hw.collective_lat
     if plan.decomp == "local":
@@ -242,10 +252,11 @@ def _resolve_comm(decomp, mesh_axes, shape, kind, comm, mesh, sizes,
         if specs[0] == "auto":
             if decomp == "factor1d":
                 specs[0] = plan_comm_factor1d(shape[0], factors[0],
-                                              factors[1], sizes[a], hw=hw)
+                                              factors[1], sizes[a], hw=hw,
+                                              planner=planner)
             else:
                 specs[0] = plan_comm_slab_nd(shape, sizes[a], hw=hw,
-                                             kind=kind)
+                                             kind=kind, planner=planner)
         elif specs[0] == "measure":
             if not live:
                 raise ValueError('comm="measure" needs a live mesh')
@@ -260,7 +271,8 @@ def _resolve_comm(decomp, mesh_axes, shape, kind, comm, mesh, sizes,
     # pencil: plan/measure per mesh axis, only the axes that ask
     if "auto" in specs:
         ps = tuple(sizes[a] for a in mesh_axes)
-        planned = plan_comm_pencil_nd(shape, ps, hw=hw, kind=kind)
+        planned = plan_comm_pencil_nd(shape, ps, hw=hw, kind=kind,
+                                      planner=planner)
         specs = [planned[i] if s == "auto" else s for i, s in enumerate(specs)]
     if "measure" in specs:
         if not live:
@@ -355,7 +367,8 @@ def plan_nd(shape: Sequence[int], kind: str = "c2c", mesh=None,
                 f"ndim={len(shape)}")
         nd = build(decomp, mesh_axes)
         return dataclasses.replace(
-            nd, est_cost=_estimate_nd(nd, planner.hw, on_mesh=bool(sizes)))
+            nd, est_cost=_estimate_nd(nd, planner.hw, on_mesh=bool(sizes),
+                                      planner=planner))
 
     key = None
     tag = _comm_tag(comm)
@@ -383,8 +396,8 @@ def plan_nd(shape: Sequence[int], kind: str = "c2c", mesh=None,
                     tuple(sizes[a] for a in mesh_axes), (), mode,
                     output_layout=output_layout,
                     factors=_plan_factors(dec, shape, mesh_axes, sizes))
-        scored.append((_estimate_nd(nd, planner.hw, on_mesh=bool(sizes)),
-                       nd))
+        scored.append((_estimate_nd(nd, planner.hw, on_mesh=bool(sizes),
+                                    planner=planner), nd))
     scored.sort(key=lambda t: t[0])
 
     if mode == "measured" and live and len(scored) > 1:
@@ -469,10 +482,11 @@ def _measure_finalists(scored, mesh, planner, build) -> NdPlan:
     fastest. Each finalist's exchanges resolve through the comm autotuners
     first. Every rank times the same finalists in the same order and the
     times are the mesh's MAX, so every rank keeps the same plan; a finalist
-    that fails raises."""
+    that fails raises. A candidate priced at infinity has a stage no 1D
+    plan covers (``Planner.stage_seconds``) and is not a finalist."""
     dev = mesh_device(mesh)
     best, best_t = None, float("inf")
-    for est, cand in scored[:3]:
+    for est, cand in [t for t in scored if math.isfinite(t[0])][:3]:
         nd = build(cand.decomp, cand.mesh_axes, est)
         probe = _probe(nd, dev)
         dt = time_on_mesh(lambda: execute_nd(nd, probe, mesh=mesh,

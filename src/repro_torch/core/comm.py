@@ -37,7 +37,9 @@ kernel has no part in them. NCCL is handed contiguous buffers only.
 Planning, in both of the paper's modes:
 
 * ESTIMATE — ``plan_comm*`` pick a backend from the roofline (pure
-  arithmetic; the default profile is ``H100``).
+  arithmetic; the default profile is ``H100``). A profile with
+  ``pipelined_hides_compute`` keeps the reference's rule; ``H100`` prices
+  the port's own ``pipelined`` design instead (:func:`_pipelined_saving`).
 * MEASURE — the ``measure_comm*`` family times every candidate on the live
   mesh. Under SPMD every rank runs the same candidates in the same order
   after a barrier, each time is reduced with MAX over the mesh (a
@@ -200,6 +202,45 @@ def a2a_pair(c: Complex, group, split: int, concat: int, p: int) -> Complex:
     for work, _ in started:
         work.wait()
     return tuple(_unlead(out, concat) for _, out in started)
+
+
+def reshard_last(x: torch.Tensor, group, p: int, me: int, width: int,
+                 valid: int) -> torch.Tensor:
+    """Move a sequence sharded over the last axis from one block width to
+    another: rank ``me`` holds positions ``[me*a, me*a + a)`` of it in ``x``
+    (``a = x.shape[-1]``) and gets back positions ``[me*width, me*width +
+    width)``, zero from ``valid`` on. Each rank sends the overlap of its
+    block with every other rank's new one (positions before ``valid``
+    only) in one ``all_to_all_single`` of uneven splits; at p == 1 nothing
+    is sent, and the block is cropped (a view) or zero-padded."""
+    a, lead = x.shape[-1], tuple(x.shape[:-1])
+
+    def overlap(src: int, dst: int) -> Tuple[int, int]:
+        lo = max(src * a, dst * width)
+        return lo, max(min(src * a + a, dst * width + width, valid), lo)
+
+    if p == 1:
+        got = x[..., :overlap(0, 0)[1]]
+    else:
+        rows = math.prod(lead)
+        send, send_sizes, recv_lens = [], [], []
+        for r in range(p):
+            lo, hi = overlap(me, r)
+            send.append(x[..., lo - me * a:hi - me * a].reshape(-1))
+            send_sizes.append(rows * (hi - lo))
+            lo, hi = overlap(r, me)
+            recv_lens.append(hi - lo)
+        recv_sizes = [rows * n for n in recv_lens]
+        out = x.new_empty(sum(recv_sizes))
+        dist.all_to_all_single(out, torch.cat(send), recv_sizes, send_sizes,
+                               group=group)
+        # the pieces arrive in rank order: consecutive positions from
+        # me*width on
+        got = torch.cat([piece.view(lead + (n,)) for piece, n in
+                         zip(out.split(recv_sizes), recv_lens)], -1)
+    if got.shape[-1] == width:
+        return got
+    return torch.cat([got, x.new_zeros(lead + (width - got.shape[-1],))], -1)
 
 
 def _gather_start(x: torch.Tensor, group, p: int):
@@ -404,38 +445,83 @@ def _default_hw(hw):
     return hw or H100
 
 
-def _roofline_choice(wire_bytes: float, flops: float, hw,
-                     overlap_capable: bool = True) -> str:
-    """The shared decision rule: the monolithic collective wins when the
-    exchange is small relative to the compute it could hide behind;
-    pipelining wins when exposed-comm would exceed ~20% of that compute
-    time and overlap hardware exists."""
-    t_comm = wire_bytes / hw.link_bw
-    t_comp = flops / hw.flops
-    if overlap_capable and t_comm > 0.2 * t_comp:
-        return "pipelined"
-    return "collective"
+#: the chunk count the executors' ``pipelined`` exchanges default to
+PIPELINED_CHUNKS = 4
+
+
+def _pipelined_saving(wire_bytes: float, pack_bytes: float,
+                      out_bytes: float, hw,
+                      chunks: int = PIPELINED_CHUNKS) -> float:
+    """Seconds the port's :class:`PipelinedBackend` saves over one
+    collective exchange (negative: it loses). Its chunks are all started
+    before any is waited on, so a chunk's wire can overlap the packing copy
+    of the chunks after it, (c-1)/c of the smaller of the two; it overlaps
+    no DFT pass. It pays c-1 more calls per pair member and one
+    ``torch.cat`` copy of its ``out_bytes``. Where the pack is a copy of
+    the output's bytes, the overlap never repays that copy."""
+    t_wire = wire_bytes / hw.link_bw
+    t_pack = 2.0 * pack_bytes / hw.hbm_bw            # read once, write once
+    gain = (chunks - 1) / chunks * min(t_wire, t_pack)
+    cost = 2 * (chunks - 1) * hw.collective_lat + 2.0 * out_bytes / hw.hbm_bw
+    return gain - cost
+
+
+def _roofline_choice(wire_bytes: float, t_comp: float, hw,
+                     overlap_capable: bool = True, block_bytes: float = 0.0,
+                     out_bytes: Optional[float] = None,
+                     exchanges: int = 1) -> str:
+    """The shared decision rule for ``exchanges`` alike exchanges that put
+    ``wire_bytes`` on the wire in all and pack ``block_bytes`` in all,
+    beside ``t_comp`` seconds of DFT compute. Under the reference's rule
+    (``hw.pipelined_hides_compute``) the monolithic collective wins when
+    the exchange is small relative to the compute it could hide behind and
+    pipelining wins when exposed comm would exceed ~20% of it. Under the
+    port's, pipelining wins only where :func:`_pipelined_saving` of one
+    exchange is positive (``out_bytes``: what it concatenates, by default
+    the packed bytes)."""
+    if not overlap_capable:
+        return "collective"
+    if hw.pipelined_hides_compute:
+        return "pipelined" if wire_bytes / hw.link_bw > 0.2 * t_comp \
+            else "collective"
+    out = block_bytes if out_bytes is None else out_bytes
+    saving = _pipelined_saving(wire_bytes / exchanges,
+                               block_bytes / exchanges, out / exchanges, hw)
+    return "pipelined" if saving > 0 else "collective"
+
+
+def _compute_seconds(flops: float, stages, hw, planner=None) -> float:
+    """The DFT compute a comm roofline weighs an exchange against: the
+    reference's dense four-step ``flops`` at the profile's rate, or, for a
+    profile with ``fft_share`` and a planner, the planner's own prices of
+    ``stages``, each a c2c (length, rows)."""
+    if planner is None or not hw.fft_share:
+        return flops / hw.flops
+    return sum(planner.stage_seconds(n, "c2c", rows) for n, rows in stages)
 
 
 def plan_comm(n: int, m: int, p: int, hw=None,
-              overlap_capable: bool = True) -> str:
+              overlap_capable: bool = True, planner=None) -> str:
     """Choose the communication backend for an (n x m) slab FFT on p ranks
     (two exchanges of the (n/p) x padded_half(m, p) slab; the agas wire is
     p times larger and never chosen)."""
     hw = _default_hw(hw)
     mh_pad = padded_half(m, p)
-    slab_bytes = (n / p) * mh_pad * 8.0
+    elems = (n / p) * mh_pad
+    slab_bytes = elems * 8.0
     wire = 2.0 * (p - 1) / p * slab_bytes
     # local compute: four-step matmul flops for rows + cols
-    flops = 8.0 * (n / p) * mh_pad * (
-        sum(algo.default_factorization(m // 2))
-        + sum(algo.default_factorization(n)))
-    return _roofline_choice(wire, flops, hw, overlap_capable)
+    flops = 8.0 * elems * (sum(algo.default_factorization(m // 2))
+                           + sum(algo.default_factorization(n)))
+    t_comp = _compute_seconds(flops, [(m // 2, elems / (m // 2)),
+                                      (n, elems / n)], hw, planner)
+    return _roofline_choice(wire, t_comp, hw, overlap_capable,
+                            block_bytes=2.0 * slab_bytes, exchanges=2)
 
 
 def plan_comm_slab_nd(shape: Sequence[int], p: int, hw=None,
                       kind: str = "c2c",
-                      overlap_capable: bool = True) -> str:
+                      overlap_capable: bool = True, planner=None) -> str:
     """:func:`plan_comm` generalized to an N-D slab decomposition: the first
     transform axis is sharded over ``p`` ranks, the last axis (its r2c half
     spectrum, for real kinds) is split in the exchange, every other axis is
@@ -448,7 +534,10 @@ def plan_comm_slab_nd(shape: Sequence[int], p: int, hw=None,
     elems = float(np.prod([pad_to(shape[0], p), *shape[1:-1]])) * last
     wire = 2.0 * (p - 1) / p * (elems / p) * 8.0
     flops = 8.0 * (elems / p) * sum(fac_sum(n) for n in shape)
-    return _roofline_choice(wire, flops, hw, overlap_capable)
+    t_comp = _compute_seconds(flops, [(n, elems / p / n) for n in shape],
+                              hw, planner)
+    return _roofline_choice(wire, t_comp, hw, overlap_capable,
+                            block_bytes=2.0 * elems / p * 8.0, exchanges=2)
 
 
 def fac_sum(n: int) -> float:
@@ -463,7 +552,7 @@ def fac_sum(n: int) -> float:
 
 def plan_comm_pencil_nd(shape: Sequence[int], mesh_shape: Sequence[int],
                         hw=None, overlap_capable: bool = True,
-                        kind: str = "c2c") -> Tuple[str, ...]:
+                        kind: str = "c2c", planner=None) -> Tuple[str, ...]:
     """Choose per-mesh-axis comm backends for a k-axis pencil FFT of an
     N-D transform (``k = len(mesh_shape)`` sharded leading axes, one
     exchange per adjacent pair of the chain). Exchange ``j`` stays within
@@ -484,7 +573,10 @@ def plan_comm_pencil_nd(shape: Sequence[int], mesh_shape: Sequence[int],
             return "collective"
         wire = (p - 1) / p * pencil_bytes
         flops = 8.0 * elems * sum(algo.default_factorization(n_axis))
-        return _roofline_choice(wire, flops, hw, overlap_capable)
+        t_comp = _compute_seconds(flops, [(n_axis, elems / n_axis)], hw,
+                                  planner)
+        return _roofline_choice(wire, t_comp, hw, overlap_capable,
+                                block_bytes=pencil_bytes)
 
     # mesh axis j's exchange feeds the FFT stage along transform axis j
     return tuple(choose(p, shape[j]) for j, p in enumerate(mesh_shape))
@@ -493,15 +585,16 @@ def plan_comm_pencil_nd(shape: Sequence[int], mesh_shape: Sequence[int],
 def plan_comm_pencil(shape: Tuple[int, int, int],
                      mesh_shape: Tuple[int, int], hw=None,
                      overlap_capable: bool = True,
-                     kind: str = "c2c") -> Tuple[str, str]:
+                     kind: str = "c2c", planner=None) -> Tuple[str, str]:
     """The 3D/2-mesh-axis case of :func:`plan_comm_pencil_nd`."""
     s0, s1 = plan_comm_pencil_nd(shape, mesh_shape, hw=hw,
-                                 overlap_capable=overlap_capable, kind=kind)
+                                 overlap_capable=overlap_capable, kind=kind,
+                                 planner=planner)
     return s0, s1
 
 
 def plan_comm_factor1d(n: int, n1: int, n2: int, p: int, hw=None,
-                       overlap_capable: bool = True) -> str:
+                       overlap_capable: bool = True, planner=None) -> str:
     """Choose the exchange backend for the distributed 1D factor-split FFT:
     each of its three exchanges moves the local ``(n1/p, n2)`` pair while a
     DFT stage computes."""
@@ -511,13 +604,16 @@ def plan_comm_factor1d(n: int, n1: int, n2: int, p: int, hw=None,
     elems = float(n) / p
     wire = (p - 1) / p * elems * 8.0
     flops = 8.0 * elems * (fac_sum(n1) + fac_sum(n2))
-    return _roofline_choice(wire, flops, hw, overlap_capable)
+    t_comp = _compute_seconds(flops, [(n1, elems / n1), (n2, elems / n2)],
+                              hw, planner)
+    return _roofline_choice(wire, t_comp, hw, overlap_capable,
+                            block_bytes=elems * 8.0)
 
 
 def plan_comm_conv(bsz: int, d: int, n1: int, n2: int, p: int, hw=None,
-                   overlap_capable: bool = True) -> str:
+                   overlap_capable: bool = True, planner=None) -> str:
     """Choose the exchange backend for the sequence-sharded FFT convolution:
-    each of its all_to_alls moves the local (bsz, n1/p, n2, d) block while a
+    each of its all_to_alls moves the local (bsz, d, n1/p, n2) block while a
     DFT stage computes."""
     hw = _default_hw(hw)
     if p <= 1:
@@ -526,20 +622,27 @@ def plan_comm_conv(bsz: int, d: int, n1: int, n2: int, p: int, hw=None,
     wire = (p - 1) / p * elems * 8.0
     flops = 8.0 * elems * (sum(algo.default_factorization(n1))
                            + sum(algo.default_factorization(n2)))
-    return _roofline_choice(wire, flops, hw, overlap_capable)
+    t_comp = _compute_seconds(flops, [(n1, elems / n1), (n2, elems / n2)],
+                              hw, planner)
+    return _roofline_choice(wire, t_comp, hw, overlap_capable,
+                            block_bytes=elems * 8.0)
 
 
 def plan_comm_gather(n_elems: int, p: int, block: int = 256, hw=None,
                      overlap_capable: bool = True) -> str:
     """Choose the gather backend for the int8 compressed all-reduce: every
     rank receives p x the quantized payload (int8 values + bf16 per-block
-    scales) and the dequantize-sum is the only compute to hide behind."""
+    scales) and the dequantize-sum is the only compute to hide behind. The
+    port's chunked gather packs nothing (its chunks are leading slices), so
+    it has no copy to overlap and concatenates p x the payload."""
     hw = _default_hw(hw)
     if p <= 1:
         return "collective"
-    wire = p * (n_elems + (n_elems / block) * 2.0)
+    payload = n_elems + (n_elems / block) * 2.0
+    wire = p * payload
     flops = 2.0 * p * n_elems
-    return _roofline_choice(wire, flops, hw, overlap_capable)
+    return _roofline_choice(wire, flops / hw.flops, hw, overlap_capable,
+                            block_bytes=0.0, out_bytes=wire)
 
 
 # ---------------------------------------------------------------------------
@@ -798,3 +901,61 @@ def measure_comm_factor1d(n: int, factors: Tuple[int, int], mesh, axis: str,
     return _measured_verdict(key, wisdom, lambda: measure_comm(
         mesh, axis, (n1 // p, n2), split=1, concat=0,
         chunk_candidates=chunk_candidates, reps=reps), mesh)
+
+
+def measure_comm_conv(bsz: int, d: int, n1: int, n2: int, mesh, axis: str,
+                      wisdom: Optional[WisdomStore] = None,
+                      chunk_candidates: Sequence[int] = DEFAULT_CHUNK_SWEEP,
+                      reps: int = 3, hw=None) -> str:
+    """Measured backend choice for the sequence-sharded FFT convolution:
+    times the stage-A exchange of the local (bsz, d, n1/p, n2) block (all
+    four of the algorithm's exchanges of the activations move the same
+    bytes through the same communicator)."""
+    p = mesh_sizes(mesh)[axis]
+    if p <= 1:
+        return "collective"
+    key = f"comm/conv/b{bsz}d{d}/{n1}x{n2}/p{p}/{_hw_tag(hw)}"
+    return _measured_verdict(key, wisdom, lambda: measure_comm(
+        mesh, axis, (bsz, d, n1 // p, n2), split=3, concat=2,
+        chunk_candidates=chunk_candidates, reps=reps), mesh)
+
+
+def _time_gather(backend: CommBackend, mesh, axis_name: str, nb: int,
+                 block: int, p: int, reps: int) -> float:
+    """Time one compressed-payload gather (int8 values + bf16 scales of
+    ``nb`` blocks) plus the dequantize-sum it must hide behind: the
+    collective :func:`repro_torch.optim.compress.compressed_psum` issues."""
+    rng = np.random.default_rng(0)
+    dev = mesh_device(mesh)
+    q = torch.from_numpy(
+        rng.integers(-127, 128, (nb, block)).astype(np.int8)).to(dev)
+    s = torch.from_numpy(rng.standard_normal((nb, 1)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    group = mesh.get_group(axis_name)
+
+    def run():
+        qg, sg = backend.gather((q, s), group, p)
+        return (qg.float() * sg.float()).sum(0)
+
+    seconds = time_on_mesh(run, mesh, reps)
+    MEASURE_STATS["timed"] += 1
+    return seconds
+
+
+def measure_comm_gather(mesh, axis_name: str, n_elems: int,
+                        block: int = 256,
+                        wisdom: Optional[WisdomStore] = None,
+                        chunk_candidates: Sequence[int] = DEFAULT_CHUNK_SWEEP,
+                        reps: int = 3, hw=None) -> str:
+    """Measured gather choice for the int8 compressed all-reduce over an
+    ``n_elems``-element payload (agas is skipped: its gather is the
+    monolithic collective)."""
+    p = mesh_sizes(mesh)[axis_name]
+    if p <= 1:
+        return "collective"
+    nb = -(-n_elems // block)
+    key = f"comm/gather/{n_elems}/b{block}/p{p}/{_hw_tag(hw)}"
+    return _measured_verdict(key, wisdom, lambda: _run_sweep(
+        _candidate_specs(nb, chunk_candidates, base=("collective",)),
+        lambda spec: _time_gather(get_backend(spec), mesh, axis_name,
+                                  nb, block, p, reps)), mesh)

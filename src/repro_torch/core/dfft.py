@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -57,7 +58,9 @@ __all__ = ["rows_rfft", "rows_irfft", "hermitian_extend_last",
            "execute_pencil", "execute_pencil_inverse",
            "execute_factor1d", "execute_factor1d_inverse",
            "input_layout", "spectrum_layout", "block_shape",
-           "distribute", "collect"]
+           "distribute", "collect",
+           "fft2_slab", "ifft2_slab", "fft3_pencil", "ifft3_pencil",
+           "rfft3_pencil", "irfft3_pencil"]
 
 
 # ---------------------------------------------------------------------------
@@ -111,19 +114,32 @@ def _fft_axis(plan: Plan, c: Complex, axis: int, inverse: bool = False
               ) -> Complex:
     """c2c transform along one (fully local) axis of a pair."""
     run = execute_inverse if inverse else execute
+    return along_axis(lambda z: run(plan, z), c, axis)
+
+
+def along_axis(fn, c: Complex, axis: int) -> Complex:
+    """Apply ``fn``, a transform of the last axis of a pair, along ``axis``:
+    the axis is moved last and back on the transpose kernel."""
     axis = axis % c[0].dim()
     if axis == c[0].dim() - 1:
-        return run(plan, c)
-    zt = run(plan, (_axis_last(c[0], axis), _axis_last(c[1], axis)))
+        return fn(c)
+    zt = fn((_axis_last(c[0], axis), _axis_last(c[1], axis)))
     return _axis_back(zt[0], axis), _axis_back(zt[1], axis)
+
+
+@functools.lru_cache(maxsize=None)
+def _mirror_index(n: int, device: torch.device) -> torch.Tensor:
+    """n-k for k = n//2+1..n-1, on ``device``: kept there like
+    ``algo._wrap_index``, since a copy from host memory in every call
+    would make the host wait for the stream."""
+    return torch.from_numpy(np.arange(n - (n // 2 + 1), 0, -1)).to(device)
 
 
 def hermitian_extend_last(c: Complex, n: int) -> Complex:
     """Rebuild the full length-``n`` spectrum from the half spectrum of a
     real signal along the last axis: ``F[k] = conj(F[n-k])`` for k > n//2.
     Valid whenever every other axis is already in its real/spatial form."""
-    mh = n // 2 + 1
-    idx = torch.from_numpy(np.arange(n - mh, 0, -1)).to(c[0].device)
+    idx = _mirror_index(n, c[0].device)
     return (torch.cat([c[0], c[0][..., idx]], -1),
             torch.cat([c[1], -c[1][..., idx]], -1))
 
@@ -246,7 +262,16 @@ def _pencil_backends(nd, chunks: int) -> Tuple[CommBackend, ...]:
 # for c2c.
 
 
-def execute_slab(nd, x, mesh, planner: Planner, *, chunks: int = 4):
+def _check_legacy_flags(nd, flags: bool) -> None:
+    """The reference's checks on the legacy 2D layout flags."""
+    if flags and len(nd.shape) != 2:
+        raise ValueError("transposed/permuted layouts are 2D-only")
+    if flags and nd.output_layout == "transposed":
+        raise ValueError("legacy layout flag on an already-transposed plan")
+
+
+def execute_slab(nd, x, mesh, planner: Planner, *, chunks: int = 4,
+                 keep_transposed: bool = False, permuted_cols: bool = False):
     """Forward slab transform of an :class:`~repro_torch.core.api.NdPlan`.
 
     ``x``: this rank's block of the padded input — a real tensor for
@@ -254,10 +279,18 @@ def execute_slab(nd, x, mesh, planner: Planner, *, chunks: int = 4):
     leading batch dims. Returns this rank's block of the padded spectrum,
     sharded over the first transform axis, or with
     ``output_layout="transposed"`` over the last one, which skips the
-    second exchange."""
+    second exchange.
+
+    ``keep_transposed`` / ``permuted_cols`` are the historical 2D-only
+    layout flags of ``fft2_slab``: the first returns this rank's block
+    transposed, (lp/p, n0) (the reference's folded (lp/p, n0*p) layout,
+    cut by rank; no second exchange), the second plans the column pass
+    ``permuted=True``, so it skips its digit transpose (on the four-step
+    kernel under ``hopper``). New code plans the layout instead."""
     d = len(nd.shape)
     if nd.decomp != "slab" or len(nd.mesh_axes) != 1:
         raise ValueError(f"execute_slab takes a slab plan, got {nd.decomp}")
+    _check_legacy_flags(nd, keep_transposed or permuted_cols)
     ax, p = nd.mesh_axes[0], nd.mesh_shape[0]
     group = _group(mesh, nd, ax)
     pair_in = nd.kind == "c2c"
@@ -265,11 +298,14 @@ def execute_slab(nd, x, mesh, planner: Planner, *, chunks: int = 4):
     i0, il = bnd, bnd + d - 1
     n0, nlast = nd.shape[0], nd.shape[-1]
     n0p = pad_to(n0, p)
+    if keep_transposed and n0p != n0:
+        raise ValueError("keep_transposed requires shape[0] divisible by "
+                         "the mesh axis (mixed radix keeps both exchanges)")
     lp = nd.padded_spectrum_shape[-1]
     backend = _slab_backend(nd, chunks)
     mid_plans = [planner.plan(nd.shape[k], kind="c2c")
                  for k in range(1, d - 1)]
-    col_plan = planner.plan(n0, kind="c2c")
+    col_plan = planner.plan(n0, kind="c2c", permuted=permuted_cols)
 
     if pair_in:
         y = _pad_axis(execute(planner.plan(nlast, kind="c2c"), x), il, lp)
@@ -280,6 +316,8 @@ def execute_slab(nd, x, mesh, planner: Planner, *, chunks: int = 4):
     y = backend.exchange(y, group, split=il, concat=i0, p=p)
     y = _crop_axis(y, i0, n0)                               # mixed radix
     y = _fft_axis(col_plan, y, i0)                          # first axis
+    if keep_transposed:     # 2D: hand back the transposed local block
+        return _swap_last(y)
     y = _pad_axis(y, i0, n0p)
     if nd.output_layout == "transposed":    # skip the second exchange
         return y
@@ -287,35 +325,55 @@ def execute_slab(nd, x, mesh, planner: Planner, *, chunks: int = 4):
 
 
 def execute_slab_inverse(nd, c: Complex, mesh, planner: Planner, *,
-                         chunks: int = 4):
+                         chunks: int = 4, from_transposed: bool = False,
+                         permuted_cols: bool = False):
     """Inverse slab transform: this rank's block of the PADDED spectrum
     (zero padded bands) in, this rank's block of the padded input out —
     real for ``kind="r2c"``, a pair for ``"c2c"`` — the first transform
     axis still padded to ``pad_to(n0, p)``. A transposed plan consumes the
-    last-axis-sharded layout with a single exchange."""
+    last-axis-sharded layout with a single exchange; the legacy 2D
+    ``from_transposed`` flag consumes ``keep_transposed``'s (lp/p, n0)
+    block instead, and ``permuted_cols`` a column pass in permuted
+    order."""
     d = len(nd.shape)
     if nd.decomp != "slab" or len(nd.mesh_axes) != 1:
         raise ValueError(f"execute_slab_inverse takes a slab plan, got "
                          f"{nd.decomp}")
+    _check_legacy_flags(nd, from_transposed or permuted_cols)
     ax, p = nd.mesh_axes[0], nd.mesh_shape[0]
     group = _group(mesh, nd, ax)
-    bnd = _check_block(nd, c[0], spectrum=True)
-    i0, il = bnd, bnd + d - 1
     n0, nlast = nd.shape[0], nd.shape[-1]
     n0p = pad_to(n0, p)
+    lp = nd.padded_spectrum_shape[-1]
+    if from_transposed:
+        if n0p != n0:
+            raise ValueError("from_transposed requires shape[0] divisible "
+                             "by the mesh axis")
+        want = (lp // p, n0)
+        if tuple(c[0].shape[-2:]) != want:
+            raise ValueError(f"a rank's transposed block ends in {want}, "
+                             f"got {tuple(c[0].shape)}")
+        bnd = c[0].dim() - d
+    else:
+        bnd = _check_block(nd, c[0], spectrum=True)
+    i0, il = bnd, bnd + d - 1
     ltrue = nd.spectrum_shape[-1]       # mh for r2c, nlast for c2c
     backend = _slab_backend(nd, chunks)
-    col_plan = planner.plan(n0, kind="c2c")
+    col_plan = planner.plan(n0, kind="c2c", permuted=permuted_cols)
     mid_plans = [planner.plan(nd.shape[k], kind="c2c")
                  for k in range(1, d - 1)]
 
     z = c
-    if nd.output_layout != "transposed":
-        # the transposed input is already in the post-exchange layout
-        z = backend.exchange(z, group, split=il, concat=i0, p=p)
-    z = _crop_axis(z, i0, n0)
-    z = _fft_axis(col_plan, z, i0, inverse=True)
-    z = _pad_axis(z, i0, n0p)
+    if from_transposed:
+        # the first axis is last in the folded layout: transform it there
+        z = _swap_last(execute_inverse(col_plan, z))        # (n0, lp/p)
+    else:
+        if nd.output_layout != "transposed":
+            # the transposed input is already in the post-exchange layout
+            z = backend.exchange(z, group, split=il, concat=i0, p=p)
+        z = _crop_axis(z, i0, n0)
+        z = _fft_axis(col_plan, z, i0, inverse=True)
+        z = _pad_axis(z, i0, n0p)
     z = backend.exchange(z, group, split=i0, concat=il, p=p)
     z = _crop_axis(z, il, ltrue)                            # drop padding
     for k, mp in reversed(list(enumerate(mid_plans))):      # middle axes
@@ -541,6 +599,161 @@ def execute_factor1d_inverse(nd, c: Complex, mesh, planner: Planner, *,
     z = backend.exchange(z, group, split=i1, concat=i2, p=p)  # (n1/p, n2)
     flat = shape[:-2] + (n1 * n2 // p,)
     return z[0].reshape(flat), z[1].reshape(flat)
+
+
+# ---------------------------------------------------------------------------
+# deprecated shape-specific shims (build an NdPlan, run the shared executor)
+# ---------------------------------------------------------------------------
+#
+# Each rank passes its block, as everywhere in the port. The reference's
+# shims read the global shape off their global input; a block gives it
+# only where the mesh divides every sharded length (the block of a padded
+# axis names the padded length). Elsewhere pass the global transform
+# ``shape=``; a block that does not fit it raises.
+
+_DEPRECATED_EMITTED = set()
+
+
+def _warn_deprecated(name: str) -> None:
+    """One DeprecationWarning per entry point per process."""
+    if name in _DEPRECATED_EMITTED:
+        return
+    _DEPRECATED_EMITTED.add(name)
+    warnings.warn(
+        f"repro_torch.core.dfft.{name} is deprecated; use "
+        "repro_torch.core.api.plan_nd and the fftn/ifftn/rfftn/irfftn "
+        "front-end instead", DeprecationWarning, stacklevel=3)
+
+
+def _shim_plan(shape, kind, mesh, mesh_axes, comm, planner, decomp):
+    from .api import plan_nd
+    return plan_nd(tuple(int(n) for n in shape), kind, mesh=mesh,
+                   axes=tuple(mesh_axes), comm=comm, planner=planner,
+                   decomp=decomp)
+
+
+def _shim_shape(shape, from_block, tail=None):
+    """The global transform shape: ``shape``, or what the block gives;
+    ``tail`` is a last length the reference's signature passes itself."""
+    if shape is None:
+        return tuple(from_block)
+    shape = tuple(int(n) for n in shape)
+    if tail is not None and shape[-1] != tail:
+        raise ValueError(f"shape {shape} does not end in {tail}")
+    return shape
+
+
+def _on_mesh(x, mesh):
+    from .api import _as_pair, _as_real
+    dev = mesh_device(mesh)
+    return _as_pair(x, dev) if isinstance(x, (tuple, list)) \
+        else _as_real(x, dev)
+
+
+def fft2_slab(x, mesh, axis: str, planner: Optional[Planner] = None,
+              comm="collective", chunks: int = 4,
+              keep_transposed: bool = False, permuted_cols: bool = False, *,
+              shape=None) -> Complex:
+    """DEPRECATED: distributed 2D r2c FFT (use ``plan_nd`` + ``rfftn``).
+
+    x: this rank's real (N/p, M) block, rows sharded over ``axis``.
+    Returns its (re, im) block of the (N, mh_pad) padded spectrum (crop to
+    M//2+1 for the exact rfft2), or with ``keep_transposed`` its
+    transposed (mh_pad/p, N) block (the whole second exchange saved).
+    ``permuted_cols`` skips the column FFT's digit transpose (pair with
+    ``ifft2_slab(..., permuted_cols=True)``)."""
+    _warn_deprecated("fft2_slab")
+    planner = planner or Planner(backends=("torch",))
+    x = _on_mesh(x, mesh)
+    p = mesh_sizes(mesh)[axis]
+    nd = _shim_plan(_shim_shape(shape, (x.shape[0] * p, x.shape[1])),
+                    "r2c", mesh, (axis,), comm, planner, "slab")
+    return execute_slab(nd, x, mesh, planner, chunks=chunks,
+                        keep_transposed=keep_transposed,
+                        permuted_cols=permuted_cols)
+
+
+def ifft2_slab(c: Complex, mesh, axis: str, m: int,
+               planner: Optional[Planner] = None, comm="collective",
+               chunks: int = 4, from_transposed: bool = False,
+               permuted_cols: bool = False, *, shape=None) -> torch.Tensor:
+    """DEPRECATED: inverse of :func:`fft2_slab` back to this rank's real
+    (N/p, M) block (use ``plan_nd`` + ``irfftn``)."""
+    _warn_deprecated("ifft2_slab")
+    planner = planner or Planner(backends=("torch",))
+    c = _on_mesh(c, mesh)
+    p = mesh_sizes(mesh)[axis]
+    n = c[0].shape[1] if from_transposed else c[0].shape[0] * p
+    nd = _shim_plan(_shim_shape(shape, (n, m), tail=m), "r2c", mesh,
+                    (axis,), comm, planner, "slab")
+    return execute_slab_inverse(nd, c, mesh, planner, chunks=chunks,
+                                from_transposed=from_transposed,
+                                permuted_cols=permuted_cols)
+
+
+def fft3_pencil(x: Complex, mesh, axes: Tuple[str, str],
+                planner: Optional[Planner] = None, comm="collective",
+                chunks: int = 4, *, shape=None) -> Complex:
+    """DEPRECATED: 3D c2c pencil FFT (use ``plan_nd`` + ``fftn``): this
+    rank's (X/p0, Y/p1, Z) block of a pair in, its (X, Y/p0, Z/p1) block
+    of the spectrum out. ``comm`` may be one spec for both communicators,
+    a per-axis pair/dict, ``"auto"`` or ``"measure"``."""
+    _warn_deprecated("fft3_pencil")
+    planner = planner or Planner(backends=("torch",))
+    x = _on_mesh(x, mesh)
+    p0, p1 = (mesh_sizes(mesh)[a] for a in axes)
+    b = x[0].shape
+    nd = _shim_plan(_shim_shape(shape, (b[0] * p0, b[1] * p1, b[2])),
+                    "c2c", mesh, axes, comm, planner, "pencil")
+    return execute_pencil(nd, x, mesh, planner, chunks=chunks)
+
+
+def ifft3_pencil(c: Complex, mesh, axes: Tuple[str, str],
+                 planner: Optional[Planner] = None, comm="collective",
+                 chunks: int = 4, *, shape=None) -> Complex:
+    """DEPRECATED: inverse of :func:`fft3_pencil` (use ``plan_nd`` +
+    ``ifftn``)."""
+    _warn_deprecated("ifft3_pencil")
+    planner = planner or Planner(backends=("torch",))
+    c = _on_mesh(c, mesh)
+    p0, p1 = (mesh_sizes(mesh)[a] for a in axes)
+    b = c[0].shape
+    nd = _shim_plan(_shim_shape(shape, (b[0], b[1] * p0, b[2] * p1)),
+                    "c2c", mesh, axes, comm, planner, "pencil")
+    return execute_pencil_inverse(nd, c, mesh, planner, chunks=chunks)
+
+
+def rfft3_pencil(x, mesh, axes: Tuple[str, str],
+                 planner: Optional[Planner] = None, comm="collective",
+                 chunks: int = 4, *, shape=None) -> Complex:
+    """DEPRECATED: 3D r2c pencil FFT of this rank's real (X/p0, Y/p1, Z)
+    block (use ``plan_nd`` + ``rfftn``). Returns its (re, im) block of the
+    (X, Y, zh_pad) padded spectrum, (X, Y/p0, zh_pad/p1); crop the last
+    axis to Z//2+1 for the exact ``numpy.fft.rfftn``."""
+    _warn_deprecated("rfft3_pencil")
+    planner = planner or Planner(backends=("torch",))
+    x = _on_mesh(x, mesh)
+    p0, p1 = (mesh_sizes(mesh)[a] for a in axes)
+    b = x.shape
+    nd = _shim_plan(_shim_shape(shape, (b[0] * p0, b[1] * p1, b[2])),
+                    "r2c", mesh, axes, comm, planner, "pencil")
+    return execute_pencil(nd, x, mesh, planner, chunks=chunks)
+
+
+def irfft3_pencil(c: Complex, mesh, axes: Tuple[str, str], nz: int,
+                  planner: Optional[Planner] = None, comm="collective",
+                  chunks: int = 4, *, shape=None) -> torch.Tensor:
+    """DEPRECATED: inverse of :func:`rfft3_pencil` back to this rank's real
+    (X/p0, Y/p1, Z) block (use ``plan_nd`` + ``irfftn``). Takes the
+    *uncropped* padded spectrum block plus the original Z length ``nz``."""
+    _warn_deprecated("irfft3_pencil")
+    planner = planner or Planner(backends=("torch",))
+    c = _on_mesh(c, mesh)
+    p0 = mesh_sizes(mesh)[axes[0]]
+    b = c[0].shape
+    nd = _shim_plan(_shim_shape(shape, (b[0], b[1] * p0, nz), tail=nz),
+                    "r2c", mesh, axes, comm, planner, "pencil")
+    return execute_pencil_inverse(nd, c, mesh, planner, chunks=chunks)
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,19 @@ class HardwareSpec:
     matmul_dim: int       # native matmul tile
     vmem_bytes: int       # fast scratch (shared memory / L2)
     collective_lat: float  # seconds charged per collective call
+    # Share of its radix-FFT bound, max(5*B*n*log2(n) / flops,
+    # 16*B*n / hbm_bw), that the hand-written four-step kernel reaches. When
+    # set, a kernel pass (a two-factor c2c plan of a hopper backend) is
+    # priced as that bound over this share, and the N-D and comm rooflines
+    # charge each stage the planner's own 1D price. 0 keeps the reference's
+    # dense four-step pricing (2*muls*n*sum(factors) flops a row) throughout.
+    fft_share: float = 0.0
+    # True: the reference's rule, in which a chunked exchange hides behind
+    # the DFT stages and pipelined wins once the wire passes 20% of their
+    # compute. False: the port's PipelinedBackend, which overlaps a chunk's
+    # wire only with the packing of the chunks after it, priced against the
+    # calls and the concatenating copy it adds (comm._pipelined_saving).
+    pipelined_hides_compute: bool = True
 
 
 # flops and hbm_bw measured by `python -m repro_torch.calibrate` on an
@@ -77,20 +90,25 @@ class HardwareSpec:
 # torch.matmul 8192^3 with TF32 off, and a 1 GiB device-to-device copy
 # (bytes read + written). link_bw is NVLink's published 450 GB/s each way;
 # matmul_dim is the register tile (8 columns) of the four-step kernel's
-# dense first design, which the estimate still prices (PERF.md section 7);
-# vmem_bytes is the 50 MB L2. collective_lat is the cost of one NCCL
-# all_to_all_single call of 1 KiB at world size 1 on the same card, 50.66
-# us (`chip_smoke.py` phase 10, calibrate.collective_latency, on an
-# "NVIDIA H100 80GB HBM3, 700.00 W"; other runs gave 78.06 and 133.74 us).
-# Across 4 NVLink-connected cards of that kind one call measured 77.93 us
-# (`scripts/dist_times.py`): the host's dispatch, not the wire, sets it.
+# dense first design, which still prices the torch.matmul plans; vmem_bytes
+# is the 50 MB L2. fft_share is the four-step kernel's share of its bound
+# at these flops and hbm_bw at (8193, 16384), (128, 128): the median of 5
+# cards' calibrate.four_step_share, 0.4948-0.5323 (1.357-1.460 ms; chip_smoke
+# phase 1 and scripts/dist_times.py, cards of that kind). collective_lat
+# is the cost of one NCCL all_to_all_single call of 1 KiB across 4
+# NVLink-connected cards of that kind, where the verdicts at p > 1 are
+# made: the median of 5 runs of 200 calls, 49.88-77.90 us
+# (scripts/dist_times.py); at world size 1 single runs gave 38.87-144.40
+# us. The host's dispatch, not the wire, sets it. The port's pipelined
+# exchange overlaps no DFT pass.
 H100 = HardwareSpec("h100", flops=51.33e12, hbm_bw=2.974e12, link_bw=450e9,
                     matmul_dim=8, vmem_bytes=50 * 2 ** 20,
-                    collective_lat=5.066e-5)
+                    collective_lat=5.240e-5, fft_share=0.5249,
+                    pipelined_hides_compute=False)
 # collective_lat: one gloo all_to_all_single call of 1 KiB at world size 1
 # on an 8-core x86-64 CPU (`python -m repro_torch.calibrate --gloo`, the
-# middle of three runs of 25.0-28.7 us); the other constants are the
-# reference's CPU profile.
+# middle of three runs of 25.0-28.7 us); the other constants, its pricing
+# and its pipelined rule are the reference's CPU profile.
 CPU_LOCAL = HardwareSpec("cpu_local", flops=5e9, hbm_bw=20e9, link_bw=1e9,
                          matmul_dim=8, vmem_bytes=32 * 2 ** 20,
                          collective_lat=2.68e-5)
@@ -198,8 +216,13 @@ class Planner:
 
     # -- cost model ---------------------------------------------------------
 
-    def _estimate_seconds(self, plan: Plan, batch: int) -> float:
+    def _estimate_seconds(self, plan: Plan, batch: float) -> float:
         hw = self.hw
+        if hw.fft_share and runs_the_kernel(plan):
+            n = plan.n
+            bound = max(5.0 * batch * n * max(np.log2(n), 1) / hw.flops,
+                        16.0 * batch * n / hw.hbm_bw)
+            return bound / hw.fft_share
         t_compute = plan.flops(batch) / hw.flops
         t_mem = plan.bytes_moved(batch) / hw.hbm_bw
         # matmul efficiency penalty: factors far below the tile waste lanes
@@ -207,6 +230,15 @@ class Planner:
             util = min(min(plan.factors) / hw.matmul_dim, 1.0)
             t_compute = t_compute / max(util, 1 / hw.matmul_dim)
         return max(t_compute, t_mem)
+
+    def stage_seconds(self, n: int, kind: str = "c2c",
+                      batch: float = 1) -> float:
+        """Estimated seconds of the cheapest 1D candidate of length ``n``
+        over ``batch`` rows (inf where none exists): the price of one stage
+        in the N-D and comm rooflines of a profile with ``fft_share``."""
+        return min((self._estimate_seconds(p, batch)
+                    for p in self._candidates(n, kind, False)),
+                   default=float("inf"))
 
     # -- plan construction ---------------------------------------------------
 
@@ -285,6 +317,12 @@ class Planner:
 # ---------------------------------------------------------------------------
 
 
+def runs_the_kernel(plan: Plan) -> bool:
+    """Whether :func:`execute` runs ``plan`` on the four-step kernel."""
+    return (plan.backend.startswith("hopper") and plan.kind == "c2c"
+            and len(plan.factors) == 2)
+
+
 def execute(plan: Plan, x):
     """Apply a plan along the last axis. c2c takes/returns an (re, im) pair;
     r2c takes a real tensor and returns a pair; c2r the reverse."""
@@ -295,8 +333,7 @@ def execute(plan: Plan, x):
             return algo.to_pair(torch.fft.rfft(x.float()))
         return torch.fft.irfft(algo.to_complex(x)).float()
 
-    if (plan.backend.startswith("hopper") and plan.kind == "c2c"
-            and len(plan.factors) == 2):
+    if runs_the_kernel(plan):
         # the kernel covers the two-factor c2c hot loop; the r2c pack/unpack
         # glue and longer factorizations take the matmul path below
         return dft_ops.fft_four_step(x, plan.factors,

@@ -6,6 +6,7 @@ suite is tests/test_torch_dist.py)."""
 
 import dataclasses
 import datetime
+import functools
 
 import jax
 import numpy as np
@@ -300,3 +301,182 @@ def test_measured_planning_on_one_rank_times_nothing(one_rank):
                          comm="measure", planner=_cpu_planner())
     assert forced.comm == ("collective",)
     assert (api.PLAN_ND_STATS["timed"], comm.MEASURE_STATS["timed"]) == before
+
+
+def test_core_exports_what_the_reference_exports():
+    """Every name of repro.core's export list but the JAX version shims
+    (compat) and the TPU profile is exported by repro_torch.core."""
+    import repro.core as jcore
+    import repro_torch.core as core
+    assert set(jcore.__all__) - set(core.__all__) == {"compat", "TPU_V5E"}
+    for name in core.__all__:
+        assert hasattr(core, name), name
+
+
+@pytest.mark.parametrize("n", [7, 9, 12])
+def test_hermitian_extend_keeps_its_index_on_the_device(n):
+    """The mirror index of an odd-length c2r is built once per (n, device):
+    a second call reuses the same tensor (no copy from host memory)."""
+    dev = torch.device("cpu")
+    assert dfft._mirror_index(n, dev) is dfft._mirror_index(n, dev)
+    x = RNG.standard_normal((3, n))
+    half = np.fft.rfft(x)
+    full = dfft.hermitian_extend_last(
+        (torch.from_numpy(half.real), torch.from_numpy(half.imag)), n)
+    np.testing.assert_allclose(_np(full), np.fft.fft(x), atol=1e-12)
+
+
+@pytest.mark.parametrize("shape,kind,mesh,want", [
+    ((16384, 16384), "r2c", {"fft": 4}, ("slab", ("collective",))),
+    ((512,) * 3, "c2c", {"mx": 2, "my": 2},
+     ("pencil", ("collective", "collective"))),
+    ((1 << 26,), "c2c", {"fft": 4}, ("factor1d", ("collective",))),
+    ((16384, 16384), "r2c", None, ("local", ())),
+    ((512,) * 3, "c2c", None, ("local", ())),
+])
+def test_h100_estimate_verdicts_at_the_chip_shapes(shape, kind, mesh, want):
+    """The verdicts the H100 profile's roofline gives at the shapes the
+    card runs (measured on 4 cards: slab over collective, pencil,
+    factor1d; PERF.md section 6)."""
+    nd = api.plan_nd(shape, kind, mesh=mesh,
+                     planner=plan.Planner(backends=("hopper",)))
+    assert (nd.decomp, nd.comm) == want
+
+
+def test_a_local_plan_no_1d_plan_covers_is_priced_out():
+    """2**26 has no factorization of at most three factors <= 128: under
+    the H100's pricing its local candidate costs infinity, and measured
+    planning does not time it."""
+    p = plan.Planner(backends=("hopper",))
+    local = api.plan_nd((1 << 26,), "c2c", mesh={"fft": 4}, decomp="local",
+                        planner=p)
+    assert local.est_cost == float("inf")
+
+
+def test_measured_finalists_skip_a_candidate_priced_at_infinity(
+        one_rank, monkeypatch):
+    timed = []
+    monkeypatch.setattr(api, "execute_nd",
+                        lambda nd, x, **kw: timed.append(nd.shape) or x)
+    nd = api._measure_finalists(
+        [(float("inf"), api.NdPlan((1 << 26,), "c2c", "local")),
+         (1.0, api.NdPlan((8, 8), "r2c", "local"))], one_rank["m1"],
+        _cpu_planner(), lambda dec, axes, est: api.NdPlan((8, 8), "r2c",
+                                                            dec))
+    assert timed == [(8, 8)] * 4 and nd.measured_cost > 0
+
+
+def _conv_inputs(b=2, length=64, d=3):
+    rng = np.random.default_rng(15)
+    u = rng.standard_normal((b, length, d)).astype(np.float32)
+    k = (rng.standard_normal((d, length))
+         * np.exp(-np.arange(length) / 16)[None]).astype(np.float32)
+    return u, k
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_conv_on_one_device() -> np.ndarray:
+    """The reference's fft_conv_seq_sharded of ``_conv_inputs()`` on a
+    one-device mesh, compiled whole (eager shard_map is much slower)."""
+    from repro.core import fftconv as jfc
+    mesh = jax.make_mesh((1,), ("fft",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    return np.asarray(jax.jit(lambda u, k: jfc.fft_conv_seq_sharded(
+        u, k, mesh, "fft", jplan.Planner(backends=("jnp",))))(
+            *_conv_inputs()))
+
+
+@pytest.mark.parametrize("comm_spec", ["collective", "pipelined", "agas",
+                                       "auto", "measure"])
+def test_seq_sharded_conv_on_one_rank_is_fft_conv(one_rank, comm_spec):
+    """At world size 1 the sharded convolution is the local one: the same
+    values as fft_conv and the reference's fft_conv_seq_sharded (on a
+    one-device mesh)."""
+    from repro_torch.core import fftconv as fc
+    u, k = _conv_inputs()
+    ours = fc.fft_conv_seq_sharded(torch.from_numpy(u), torch.from_numpy(k),
+                                   one_rank["m1"], "fft", _cpu_planner(),
+                                   comm=comm_spec)
+    local = fc.fft_conv(torch.from_numpy(u), torch.from_numpy(k),
+                        planner=_cpu_planner(), device="cpu")
+    theirs = _reference_conv_on_one_device()
+    scale = np.abs(theirs).max()
+    assert ours.shape == u.shape and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), local.numpy(), atol=1e-4 * scale)
+    np.testing.assert_allclose(ours.numpy(), theirs, atol=1e-4 * scale)
+
+
+def test_seq_sharded_conv_checks_its_filters(one_rank):
+    from repro_torch.core import fftconv as fc
+    u, k = _conv_inputs()
+    with pytest.raises(ValueError, match="filters"):
+        fc.fft_conv_seq_sharded(torch.from_numpy(u),
+                                torch.from_numpy(k[:, :32]), one_rank["m1"],
+                                "fft")
+
+
+def test_sharded_mixer_on_one_rank_is_the_local_mixer(one_rank):
+    from repro_torch.models import FFTConvMixer
+    x = torch.from_numpy(RNG.standard_normal((2, 64, 8)).astype(np.float32))
+    sharded = FFTConvMixer(8, 4, device="cpu", mesh=one_rank["m1"],
+                           axis="fft")
+    local = FFTConvMixer(8, 4, device="cpu")
+    with torch.no_grad():
+        want = local(x)
+        got = sharded(x, seq_axis_sharded=True)
+        # as in the reference, the flag without a mesh is the local path
+        flagged = local(x, seq_axis_sharded=True)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(flagged, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="axis"):
+        FFTConvMixer(8, 4, device="cpu", mesh=one_rank["m1"])
+
+
+SHIM_FLAGS = [dict(), dict(permuted_cols=True), dict(keep_transposed=True),
+              dict(keep_transposed=True, permuted_cols=True)]
+
+
+@pytest.mark.filterwarnings("ignore::DeprecationWarning")
+@pytest.mark.parametrize("flags", SHIM_FLAGS,
+                         ids=lambda f: "-".join(f) or "plain")
+def test_slab_shims_on_one_rank_are_the_plan_nd_path(one_rank, flags):
+    """fft2_slab equals rfftn through plan_nd on the same block (its
+    transposed block with keep_transposed), and ifft2_slab gives the block
+    back; permuted columns are in the two-factor digit order."""
+    m = one_rank["m1"]
+    x = RNG.standard_normal((16, 24)).astype(np.float32)
+    p = _cpu_planner()
+    spec = dfft.fft2_slab(torch.from_numpy(x), m, "fft", p, **flags)
+    nd = api.plan_nd((16, 24), "r2c", mesh=m, decomp="slab", planner=p)
+    want = _np(api.rfftn(torch.from_numpy(x), mesh=m, plan=nd, planner=p))
+    got = spec
+    if flags.get("keep_transposed"):
+        assert tuple(spec[0].shape) == (13, 16)
+        got = (spec[0].T, spec[1].T)
+    if flags.get("permuted_cols"):
+        # row k1*n2 + k2 holds frequency k2*n1 + k1
+        n1, n2 = p.plan(16, "c2c", permuted=True).factors
+        want = want[np.arange(16).reshape(n2, n1).T.reshape(-1)]
+    _close(_np(got), want, want)
+    back = dfft.ifft2_slab(spec, m, "fft", 24, p,
+                           from_transposed=flags.get("keep_transposed",
+                                                     False),
+                           permuted_cols=flags.get("permuted_cols", False))
+    _close(back.numpy(), x, x)
+
+
+def test_legacy_flags_keep_the_references_checks(one_rank):
+    m = one_rank["m1"]
+    p = _cpu_planner()
+    nd3 = api.plan_nd((4, 4, 4), "r2c", mesh=m, decomp="slab", planner=p)
+    with pytest.raises(ValueError, match="2D-only"):
+        dfft.execute_slab(nd3, torch.ones(4, 4, 4), m, p,
+                          keep_transposed=True)
+    ndt = api.plan_nd((4, 4), "r2c", mesh=m, decomp="slab", planner=p,
+                      output_layout="transposed")
+    with pytest.raises(ValueError, match="already-transposed"):
+        dfft.execute_slab(ndt, torch.ones(4, 4), m, p, permuted_cols=True)
+    with pytest.raises(ValueError, match="already-transposed"):
+        dfft.execute_slab_inverse(ndt, (torch.ones(4, 3),) * 2, m, p,
+                                  from_transposed=True)

@@ -17,9 +17,12 @@ from the two result files. Tolerances are the reference's own
 (tests/_dist_worker.py): each forward within 1e-4 of max|numpy| of numpy
 in float64 and of the reference, each round trip within 1e-3. The cases
 are modelled on tests/_dist_worker.py (check_fft2_slab, check_fft3_pencil,
-check_plan_nd, check_plan_nd_generalized). JAX is imported only by the
-reference's run and the fixture, never by the gloo ranks; torch only by
-the port's run.
+check_rfft3_pencil, check_fftconv_seq_sharded, check_compressed_psum,
+check_plan_nd, check_plan_nd_generalized). The deprecated shims, the
+sequence-sharded convolution, the compressed all-reduce and the mixer's
+sharded branch have tables of their own (``SHIMS``, ``CONVS``, ``PSUMS``,
+``MIXERS``). JAX is imported only by the reference's run and the fixture,
+never by the gloo ranks; torch only by the port's run.
 """
 
 import dataclasses
@@ -48,6 +51,7 @@ WORLD = 8
 MESHES = {
     "m8": ((8,), ("fft",)),
     "m4": ((4,), ("fft4",)),
+    "m2": ((2,), ("sp2",)),
     "m3": ((3,), ("s",)),
     "m42": ((4, 2), ("mx", "my")),
     "m22": ((2, 2), ("qx", "qy")),
@@ -132,6 +136,88 @@ VERDICTS = [
 MEASURED = dict(mesh="m8", kind="r2c", shape=(64, 320))
 
 
+BACKENDS = ("collective", "pipelined", "agas")
+
+
+def _shim(name, fn, mesh, shape, comm="collective", chunks=4, **flags):
+    # "measure" is timed on each side's own mesh; the reference, whose
+    # timing sweep compiles every candidate, runs such a case with
+    # "collective" (the values do not depend on the backend)
+    return dict(name=name, fn=fn, mesh=mesh, shape=tuple(shape), comm=comm,
+                chunks=chunks, flags=flags,
+                ref_comm="collective" if "measure" in str(comm) else comm)
+
+
+# the deprecated shims (check_fft2_slab, check_fft3_pencil,
+# check_rfft3_pencil): the forward's raw layout held against the
+# reference's and numpy, the matching inverse shim against the input
+SHIMS = [
+    *[_shim(f"fft2_slab_{c}_c{k}", "fft2_slab", "m8", (64, 512), comm=c,
+            chunks=k)
+      for c in BACKENDS for k in ((1, 3, 4) if c == "pipelined" else (4,))],
+    _shim("fft2_slab_permuted_cols", "fft2_slab", "m8", (256, 256),
+          permuted_cols=True),
+    _shim("fft2_slab_keep_transposed", "fft2_slab", "m8", (64, 512),
+          keep_transposed=True),
+    *[_shim(f"fft3_pencil_{i}", "fft3_pencil", "m42", (16, 32, 64), comm=c)
+      for i, c in enumerate(BACKENDS + (("pipelined", "collective"),
+                                        {"my": "agas"}, "auto", "measure",
+                                        ("measure", "collective"),
+                                        {"mx": "measure"}))],
+    *[_shim(f"rfft3_pencil_{c}", "rfft3_pencil", "m42", (16, 32, 64),
+            comm=c) for c in BACKENDS],
+]
+
+# the sequence-sharded FFT convolution (check_fftconv_seq_sharded)
+CONV = dict(mesh="m8", b=2, length=512, d=4)
+CONVS = BACKENDS + ("auto", "measure")
+
+# the int8 compressed all-reduce (check_compressed_psum): 8 ranks, each
+# its row of a (8, 1000) array
+PSUM = dict(mesh="m8", n=1000)
+PSUMS = ("collective", "pipelined:2", "agas", "measure", "auto")
+
+# the FFT-conv mixer's sharded branch: (2, 64, 8), rank-4 filters
+MIXER = dict(b=2, length=64, d=8, rank=4)
+MIXERS = ("m2", "m4")
+
+
+def conv_inputs():
+    rng = np.random.default_rng(_seed("conv"))
+    b, length, d = CONV["b"], CONV["length"], CONV["d"]
+    u = rng.standard_normal((b, length, d)).astype(np.float32)
+    k = (rng.standard_normal((d, length))
+         * np.exp(-np.arange(length) / 32)[None]).astype(np.float32)
+    return u, k
+
+
+def psum_input() -> np.ndarray:
+    rng = np.random.default_rng(_seed("psum"))
+    return rng.standard_normal((WORLD, PSUM["n"])).astype(np.float32)
+
+
+def mixer_inputs():
+    """The mixer's parameters (``fftconv_meta``'s shapes and scales, drawn
+    with numpy so that both runs hold the same) and its input."""
+    rng = np.random.default_rng(_seed("mixer"))
+    d, r = MIXER["d"], MIXER["rank"]
+    params = {"w_in": 0.02 * rng.standard_normal((d, 2 * d)),
+              "filt": 0.2 * rng.standard_normal((d, r)),
+              "skip": np.ones(d), "w_out": 0.02 * rng.standard_normal((d, d))}
+    x = rng.standard_normal((MIXER["b"], MIXER["length"], d))
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            x.astype(np.float32))
+
+
+def shim_input(case):
+    rng = np.random.default_rng(_seed(case["name"]))
+    x = rng.standard_normal(case["shape"]).astype(np.float32)
+    if case["fn"] == "fft3_pencil":
+        x = x + 1j * rng.standard_normal(case["shape"]).astype(np.float32)
+        return x.astype(np.complex64)
+    return x
+
+
 def case_input(case) -> np.ndarray:
     """The case's full input (batch dims first), the same in both runs: a
     real float32 array for r2c, complex64 for c2c."""
@@ -201,7 +287,69 @@ def ref_main(out_path):
         meta["verdicts"][v["name"]] = dataclasses.asdict(nd)
     meta["keys"] = list(wplanner.wisdom.keys("dfft/"))
     meta["collective_lat"] = api.COLLECTIVE_LAT
+    _ref_extras(out, planner)
     np.savez(out_path, meta=json.dumps(meta), **out)
+
+
+def _ref_extras(out, planner):
+    """The reference's shims, sequence-sharded convolution, compressed
+    all-reduce and sharded mixer, compiled whole, into ``out``."""
+    import warnings
+
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.core import dfft, fftconv
+    from repro.core.compat import shard_map
+    from repro.models.blocks import fftconv_fwd
+    from repro.models.params import sharding_rules
+    from repro.optim import choose_psum_comm, compressed_psum, quantize_int8
+    warnings.filterwarnings("ignore", category=DeprecationWarning)
+    for case in SHIMS:
+        m = _jax_mesh(case["mesh"])
+        names = MESHES[case["mesh"]][1]
+        ax = names[0] if case["fn"] == "fft2_slab" else names
+        fn = getattr(dfft, case["fn"])
+        x = shim_input(case)
+        arg = (np.real(x), np.imag(x)) if np.iscomplexobj(x) else x
+        spec = jax.jit(lambda a, fn=fn, m=m, ax=ax, c=case: fn(
+            a, m, ax, planner, comm=c["ref_comm"], chunks=c["chunks"],
+            **c["flags"]))(arg)
+        out["shim/" + case["name"]] = _pair_np(spec)
+
+    m = _jax_mesh(CONV["mesh"])
+    u, k = conv_inputs()
+    for comm in CONVS:
+        c = "collective" if comm == "measure" else comm
+        out["conv/" + comm] = np.asarray(jax.jit(
+            lambda a, b, c=c: fftconv.fft_conv_seq_sharded(
+                a, b, m, "fft", planner, comm=c))(u, k))
+
+    xs = psum_input()
+    quant = [quantize_int8(x) for x in xs]
+    out["psum/q"] = np.stack([np.asarray(q) for q, _, _ in quant])
+    out["psum/scale"] = np.stack([np.asarray(s, np.float32)
+                                  for _, s, _ in quant])
+    for comm in PSUMS:
+        c = "collective" if comm == "measure" else \
+            choose_psum_comm(m, "fft", (PSUM["n"],), mode=comm)
+
+        def body(x, c=c):
+            total, err = compressed_psum(x[0], "fft", comm=c)
+            return total[None], err[None]
+
+        total, err = jax.jit(shard_map(
+            body, mesh=m, in_specs=P("fft", None),
+            out_specs=(P("fft", None), P("fft", None))))(xs)
+        out["psum/" + comm] = np.asarray(total)
+        out["psum/" + comm + "/err"] = np.asarray(err)
+
+    params, x = mixer_inputs()
+    for name in MIXERS:
+        mm = _jax_mesh(name)
+        with sharding_rules(mm, {"sp": MESHES[name][1][0]}):
+            out["mixer/" + name] = np.asarray(jax.jit(
+                lambda a: fftconv_fwd(params, None, a,
+                                      seq_axis_sharded=True))(x))
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +462,8 @@ def _port_rank(rank, store_path, out_path, hw_json):
         g = rt.get_backend(spec).gather(mine, group, WORLD)
         out[f"gather/{spec}"] = _pair(g)
 
+    _port_extras(rank, meshes, hw, out, meta)
+
     # every rank's verdicts (free and measured plans, measured exchanges),
     # gathered to rank 0
     mine = json.dumps({
@@ -328,6 +478,165 @@ def _port_rank(rank, store_path, out_path, hw_json):
     if rank == 0:
         np.savez(out_path, meta=json.dumps(meta), **out)
     dist.destroy_process_group()
+
+
+def _gathered(t, mesh, axes):
+    """Gather a rank's block (a tensor or a pair) along ``axes``, a list of
+    (tensor axis, mesh axis name), concatenating the ranks' blocks."""
+    from repro_torch.core import comm
+    pair = tuple(t) if isinstance(t, (tuple, list)) else (t, t)
+    for axis, name in axes:
+        pair = comm.all_gather_pair(pair, mesh.get_group(name),
+                                    comm.mesh_sizes(mesh)[name], axis=axis,
+                                    tiled=True)
+    return _pair(pair) if isinstance(t, (tuple, list)) else pair[0].numpy()
+
+
+def _port_shim(case, mesh, planner, rank):
+    """One shim case on this rank's block: (gathered raw forward, gathered
+    round trip)."""
+    import torch
+    from repro_torch.core import dfft
+    x = shim_input(case)
+    names = MESHES[case["mesh"]][1]
+    flags = case["flags"]
+    kw = dict(planner=planner, comm=case["comm"], chunks=case["chunks"])
+    if case["fn"] == "fft2_slab":
+        w = x.shape[0] // WORLD
+        spec = dfft.fft2_slab(torch.from_numpy(x[rank * w:(rank + 1) * w]),
+                              mesh, names[0], **kw, **flags)
+        back = dfft.ifft2_slab(
+            spec, mesh, names[0], x.shape[1], **kw,
+            from_transposed=flags.get("keep_transposed", False),
+            permuted_cols=flags.get("permuted_cols", False))
+        tiled = [(1 if flags.get("keep_transposed") else 0, names[0])]
+        return _gathered(spec, mesh, tiled), \
+            _gathered(back, mesh, [(0, names[0])])
+    i, j = (mesh.get_local_rank(a) for a in names)
+    p0, p1 = MESHES[case["mesh"]][0]
+    wx, wy = x.shape[0] // p0, x.shape[1] // p1
+    block = x[i * wx:(i + 1) * wx, j * wy:(j + 1) * wy]
+    spec_axes = [(1, names[0]), (2, names[1])]
+    in_axes = [(0, names[0]), (1, names[1])]
+    if case["fn"] == "fft3_pencil":
+        pair = (torch.from_numpy(np.ascontiguousarray(block.real)),
+                torch.from_numpy(np.ascontiguousarray(block.imag)))
+        spec = dfft.fft3_pencil(pair, mesh, names, **kw)
+        back = dfft.ifft3_pencil(spec, mesh, names, **kw)
+    else:
+        spec = dfft.rfft3_pencil(torch.from_numpy(block), mesh, names, **kw)
+        back = dfft.irfft3_pencil(spec, mesh, names, x.shape[2], **kw)
+    return _gathered(spec, mesh, spec_axes), _gathered(back, mesh, in_axes)
+
+
+def _port_extras(rank, meshes, hw, out, meta):
+    """The shims, the sequence-sharded convolution, the compressed
+    all-reduce and the mixer's sharded branch on this rank's blocks."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch.convert import fftconv_mixer_from_reference
+    from repro_torch.core import comm, dfft
+    from repro_torch.optim import (choose_psum_comm, compressed_psum,
+                                   quantize_int8)
+    planner = rt.Planner(hardware=hw, backends=("torch",), device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DeprecationWarning)
+        for case in SHIMS:
+            spec, back = _port_shim(case, meshes[case["mesh"]], planner,
+                                    rank)
+            out["shim/" + case["name"]] = spec
+            out["shim/" + case["name"] + "/back"] = back
+        # a length the mesh does not divide: the block names the padded
+        # one unless shape= gives it
+        m4 = meshes["m4"]
+        if m4 is not None:
+            x = shim_input(dict(name="shim_shape", fn="fft2_slab",
+                                shape=(10, 12)))
+            block = dfft.distribute(x, rt.plan_nd(
+                (10, 12), "r2c", mesh=m4, decomp="slab", planner=planner),
+                m4)
+            for given in (None, (10, 12)):
+                spec = dfft.fft2_slab(block, m4, "fft4", planner,
+                                      shape=given)
+                out[f"shim_shape/{given is not None}"] = _gathered(
+                    spec, m4, [(0, "fft4")])
+            try:
+                dfft.fft2_slab(block, m4, "fft4", planner, shape=(20, 12))
+                meta["shim_shape_raises"] = False
+            except ValueError:
+                meta["shim_shape_raises"] = True
+    meta["shim_warnings"] = {}
+    for w in caught:
+        text = str(w.message)
+        if issubclass(w.category, DeprecationWarning) and \
+                "repro_torch.core.api.plan_nd" in text:
+            name = text.split()[0].rsplit(".", 1)[-1]
+            meta["shim_warnings"][name] = \
+                meta["shim_warnings"].get(name, 0) + 1
+
+    # the measured verdicts of this section go to a wisdom store of their own
+    xplanner = rt.Planner(hardware=hw, backends=("torch",), device="cpu")
+    m8 = meshes[CONV["mesh"]]
+    u, k = conv_inputs()
+    w = CONV["length"] // WORLD
+    for c in CONVS:
+        y = rt.fft_conv_seq_sharded(torch.from_numpy(u[:, rank * w:
+                                                       (rank + 1) * w]),
+                                    torch.from_numpy(k), m8, "fft",
+                                    xplanner, comm=c)
+        out["conv/" + c] = _gathered(y, m8, [(1, "fft")])
+
+    # uneven repartitions: L = 384 over 4 ranks, nf = 1024 (a rank's 96
+    # positions land in one or two of the padded blocks of 256)
+    m4 = meshes["m4"]
+    if m4 is not None:
+        rng = np.random.default_rng(_seed("conv_uneven"))
+        u = rng.standard_normal((1, 384, 3)).astype(np.float32)
+        k = rng.standard_normal((3, 384)).astype(np.float32)
+        y = rt.fft_conv_seq_sharded(torch.from_numpy(u[:, rank * 96:
+                                                       (rank + 1) * 96]),
+                                    torch.from_numpy(k), m4, "fft4",
+                                    planner)
+        out["conv_uneven"] = _gathered(y, m4, [(1, "fft4")])
+
+    xs = torch.from_numpy(psum_input())
+    group = m8.get_group("fft")
+    q, scale, _ = quantize_int8(xs[rank])
+    out["psum/q"] = _gathered(q[None], m8, [(0, "fft")])
+    out["psum/scale"] = _gathered(scale.float()[None], m8, [(0, "fft")])
+    for c in PSUMS:
+        spec = choose_psum_comm(m8, "fft", (PSUM["n"],), mode=c,
+                                planner=xplanner)
+        total, err = compressed_psum(xs[rank], group, comm=spec)
+        out["psum/" + c] = _gathered(total[None], m8, [(0, "fft")])
+        out["psum/" + c + "/err"] = _gathered(err[None], m8, [(0, "fft")])
+    meta["extra_comm_keys"] = list(xplanner.wisdom.keys("comm/"))
+    every = [None] * WORLD
+    dist.all_gather_object(every, json.dumps(
+        {k: xplanner.wisdom.get(k)["backend"]
+         for k in meta["extra_comm_keys"]}, sort_keys=True))
+    meta["extra_ranks_agree"] = [e == every[0] for e in every]
+
+    params, x = mixer_inputs()
+    for name in MIXERS:
+        mesh = meshes[name]
+        if mesh is None:                    # this rank is not in the mesh
+            continue
+        axis = MESHES[name][1][0]
+        p = comm.mesh_sizes(mesh)[axis]
+        w = x.shape[1] // p
+        me = mesh.get_local_rank(axis)
+        mixer = fftconv_mixer_from_reference(params, device="cpu",
+                                             mesh=mesh, axis=axis)
+        with torch.no_grad():
+            y = mixer(torch.from_numpy(x[:, me * w:(me + 1) * w]),
+                      seq_axis_sharded=True)
+            out["mixer/" + name] = _gathered(y, mesh, [(1, axis)])
+            out["mixer/" + name + "/local"] = mixer(
+                torch.from_numpy(x)).numpy()
 
 
 def port_main(out_path, hw_json):
@@ -478,6 +787,149 @@ def test_backend_gathers_stack_every_rank(runs, spec):
     want = np.stack([(base + 100 * r) - 1j * (base + 100 * r)
                      for r in range(8)])
     np.testing.assert_array_equal(got, want)
+
+
+def _numpy_shim(case):
+    x = shim_input(case).astype(np.complex128 if case["fn"] == "fft3_pencil"
+                                else np.float64)
+    if case["fn"] == "fft3_pencil":
+        return np.fft.fftn(x)
+    return np.fft.rfftn(x)
+
+
+def _unfold(folded, n0, p):
+    """``keep_transposed``'s folded (w, p*n0) layout, rank r's block being
+    its (w, n0) transposed slab, back to the (n0, p*w) spectrum."""
+    w = folded.shape[0]
+    return folded.reshape(w, p, n0).transpose(2, 1, 0).reshape(n0, p * w)
+
+
+@pytest.mark.parametrize("case", SHIMS, ids=[c["name"] for c in SHIMS])
+def test_shims_match_the_reference_and_numpy(runs, case):
+    ours = runs["port"][0]["shim/" + case["name"]]
+    theirs = runs["ref"][0]["shim/" + case["name"]]
+    ref = _numpy_shim(case)
+    scale = np.abs(ref).max()
+    # the raw layouts, padded bands and legacy layouts included
+    assert ours.shape == theirs.shape
+    assert np.abs(ours - theirs).max() <= 1e-4 * scale
+    if case["flags"].get("permuted_cols"):
+        return                  # columns in digit order: the round trip
+    if case["flags"].get("keep_transposed"):
+        ours = _unfold(ours, case["shape"][0], WORLD)
+    crop = ours[tuple(slice(0, n) for n in ref.shape)]
+    assert np.abs(crop - ref).max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("case", SHIMS, ids=[c["name"] for c in SHIMS])
+def test_shims_round_trip(runs, case):
+    back = runs["port"][0]["shim/" + case["name"] + "/back"]
+    x = shim_input(case)
+    assert back.shape == x.shape
+    assert np.abs(back - x).max() < 1e-4
+
+
+def test_each_shim_warns_once_per_process(runs):
+    assert runs["port"][1]["shim_warnings"] == {
+        name: 1 for name in ("fft2_slab", "ifft2_slab", "fft3_pencil",
+                             "ifft3_pencil", "rfft3_pencil",
+                             "irfft3_pencil")}
+
+
+def test_shims_take_the_global_shape_where_the_mesh_does_not_divide(runs):
+    """A block of a 10-row array over 4 ranks holds 3 of the 12 padded
+    rows: without shape= the shim transforms the 12 rows, with it the 10
+    rows; a shape the block does not fit raises."""
+    x = shim_input(dict(name="shim_shape", fn="fft2_slab", shape=(10, 12)))
+    ours = runs["port"][0]
+    padded = np.fft.rfft2(np.pad(x.astype(np.float64), ((0, 2), (0, 0))))
+    given = ours["shim_shape/True"][:10, :7]
+    assert np.abs(given - np.fft.rfft2(x.astype(np.float64))).max() <= \
+        1e-4 * np.abs(padded).max()
+    assert np.abs(ours["shim_shape/False"][:, :7] - padded).max() <= \
+        1e-4 * np.abs(padded).max()
+    assert runs["port"][1]["shim_shape_raises"]
+
+
+def _numpy_conv():
+    u, k = conv_inputs()
+    length = u.shape[1]
+    nf = 2 * length
+    u, k = u.astype(np.float64), k.astype(np.float64)
+    return np.fft.irfft(
+        np.fft.rfft(np.pad(u, ((0, 0), (0, nf - length), (0, 0))), axis=1)
+        * np.fft.rfft(np.pad(k.T[None], ((0, 0), (0, nf - length), (0, 0))),
+                      axis=1), axis=1, n=nf)[:, :length, :]
+
+
+@pytest.mark.parametrize("comm", CONVS)
+def test_seq_sharded_conv_matches_numpy_and_the_reference(runs, comm):
+    ours = runs["port"][0]["conv/" + comm]
+    theirs = runs["ref"][0]["conv/" + comm]
+    ref = _numpy_conv()
+    assert ours.shape == theirs.shape == ref.shape
+    scale = np.abs(ref).max()
+    assert np.abs(ours - ref).max() <= 1e-4 * scale
+    assert np.abs(ours - theirs).max() <= 1e-4 * scale
+
+
+def test_seq_sharded_conv_repartitions_unevenly(runs):
+    rng = np.random.default_rng(_seed("conv_uneven"))
+    u = rng.standard_normal((1, 384, 3))
+    k = rng.standard_normal((3, 384))
+    ref = np.fft.irfft(np.fft.rfft(u, n=1024, axis=1)
+                       * np.fft.rfft(k.T[None], n=1024, axis=1),
+                       n=1024, axis=1)[:, :384]
+    ours = runs["port"][0]["conv_uneven"]
+    assert ours.shape == ref.shape
+    assert np.abs(ours - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_conv_and_gather_measurements_land_in_wisdom(runs):
+    meta = runs["port"][1]
+    # the reference's keys (repro.core.comm.measure_comm_conv / _gather)
+    # with the hardware tag the port appends
+    assert meta["extra_comm_keys"] == ["comm/conv/b2d4/32x32/p8/tpu_v5e",
+                                       "comm/gather/1000/b256/p8/tpu_v5e"]
+    assert len(meta["extra_ranks_agree"]) == 8
+    assert all(meta["extra_ranks_agree"])
+
+
+def test_compressed_psum_quantizes_as_the_reference(runs):
+    ours, theirs = runs["port"][0], runs["ref"][0]
+    np.testing.assert_array_equal(ours["psum/q"], theirs["psum/q"])
+    np.testing.assert_array_equal(ours["psum/scale"], theirs["psum/scale"])
+
+
+@pytest.mark.parametrize("comm", PSUMS)
+def test_compressed_psum_matches_the_reference(runs, comm):
+    ours, theirs = runs["port"][0], runs["ref"][0]
+    want = psum_input().astype(np.float64).sum(axis=0)
+    total, err = ours["psum/" + comm], ours["psum/" + comm + "/err"]
+    assert total.shape == err.shape == (WORLD, PSUM["n"])
+    # the reference's own bounds (tests/_dist_worker.py)
+    rel = np.abs(total[0] - want) / (np.abs(want) + 1e-3)
+    assert np.median(rel) < 0.02
+    assert np.abs(err).max() < 0.05
+    # and the reference's values
+    ref_total = theirs["psum/" + comm]
+    assert (total == total[0]).all()
+    assert np.abs(total - ref_total).max() <= 1e-6 * np.abs(ref_total).max()
+    ref_err = theirs["psum/" + comm + "/err"]
+    assert np.abs(err - ref_err).max() <= 1e-6 * np.abs(ref_err).max()
+
+
+@pytest.mark.parametrize("mesh", MIXERS)
+def test_sharded_mixer_matches_its_unsharded_self_and_the_reference(runs,
+                                                                    mesh):
+    ours = runs["port"][0]["mixer/" + mesh]
+    local = runs["port"][0]["mixer/" + mesh + "/local"]
+    theirs = runs["ref"][0]["mixer/" + mesh]
+    assert ours.shape == local.shape == theirs.shape == (
+        MIXER["b"], MIXER["length"], MIXER["d"])
+    scale = np.abs(theirs).max()
+    assert np.abs(ours - local).max() <= 1e-4 * scale
+    assert np.abs(ours - theirs).max() <= 1e-4 * scale
 
 
 if __name__ == "__main__":

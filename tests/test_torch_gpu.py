@@ -324,3 +324,72 @@ def test_world_of_one_nccl_pencil_and_factor1d_match_torch_fft(nccl_meshes):
     assert counts["four_step_fft"] == 2 and counts["complex_multiply"] == 1
     _within(collect(spec, nd, m), torch.fft.fft(z1.to(torch.complex128)),
             "factor1d")
+
+
+@pytest.mark.parametrize("comm", ["collective", "pipelined", "agas", "auto",
+                                  "measure"])
+def test_world_of_one_nccl_sharded_mixer_is_the_local_mixer(nccl_meshes,
+                                                            comm):
+    """The mixer's sequence-sharded branch at world size 1 on NCCL: the
+    local mixer's values, with the four-step (4), transpose (14) and
+    complex-multiply (4) kernels launched per call."""
+    planner = Planner(backends=("hopper",))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    mixer = FFTConvMixer(64, 8, planner=planner, generator=gen,
+                         mesh=nccl_meshes["m1"], axis="fft", comm=comm)
+    x = torch.randn(2, 1024, 64, device="cuda", generator=gen)
+    with torch.no_grad():
+        want = mixer(x)
+        kernels.reset_launch_counts()
+        got = mixer(x, seq_axis_sharded=True)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["four_step_fft"], counts["batched_transpose"],
+            counts["complex_multiply"]) == (4, 14, 4)
+    tol = 2e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_world_of_one_nccl_shims_are_the_plan_nd_path(nccl_meshes):
+    import warnings
+    from repro_torch.core import dfft
+    planner = Planner(backends=("hopper",))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    m = nccl_meshes["m1"]
+    x = torch.randn(256, 384, device="cuda", generator=g)
+    nd = plan_nd(x.shape, "r2c", mesh=m, decomp="slab", planner=planner)
+    want = rfftn(x, mesh=m, plan=nd, planner=planner)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for flags in ({}, {"keep_transposed": True},
+                      {"permuted_cols": True}):
+            spec = dfft.fft2_slab(x, m, "fft", planner, **flags)
+            if not flags.get("permuted_cols"):
+                got = spec if not flags else (spec[0].T, spec[1].T)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+            back = dfft.ifft2_slab(
+                spec, m, "fft", 384, planner,
+                from_transposed=flags.get("keep_transposed", False),
+                permuted_cols=flags.get("permuted_cols", False))
+            assert (back - x).abs().max().item() <= \
+                2e-4 * x.abs().max().item()
+        z = torch.randn(32, 48, 64, device="cuda", generator=g)
+        spec = dfft.rfft3_pencil(z, nccl_meshes["m11"], ("mx", "my"),
+                                 planner)
+        _within(tuple(a[..., :33] for a in spec),
+                torch.fft.rfftn(z.double()), "rfft3_pencil")
+
+
+def test_world_of_one_nccl_compressed_psum(nccl_meshes):
+    from repro_torch.optim import (choose_psum_comm, compressed_psum,
+                                   dequantize_int8, quantize_int8)
+    m = nccl_meshes["m1"]
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(1000, 37, device="cuda", generator=g)
+    q, s, pad = quantize_int8(x)
+    want = dequantize_int8(q, s, pad, x.shape)
+    for comm in ("collective", "pipelined:2", "agas",
+                 choose_psum_comm(m, "fft", x.shape, mode="measure"),
+                 choose_psum_comm(m, "fft", x.shape)):
+        total, err = compressed_psum(x, m.get_group("fft"), comm=comm)
+        assert torch.equal(total, want) and torch.equal(err, x - want)

@@ -16,7 +16,7 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
 
 def test_import_loads_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.calibrate\n"
+            "repro_torch.calibrate, repro_torch.optim\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -28,7 +28,10 @@ def test_import_loads_neither_jax_nor_the_reference():
 
 @pytest.mark.parametrize("module", ["repro_torch.core.comm",
                                     "repro_torch.core.dfft",
-                                    "repro_torch.core.api"])
+                                    "repro_torch.core.api",
+                                    "repro_torch.core.fftconv",
+                                    "repro_torch.models.blocks",
+                                    "repro_torch.optim.compress"])
 def test_the_distributed_modules_load_neither_jax_nor_the_reference(module):
     """Each module of the distributed layer, imported alone with
     torch.distributed, pulls in no JAX and nothing of the JAX package."""
@@ -45,8 +48,11 @@ def test_the_distributed_modules_load_neither_jax_nor_the_reference(module):
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "examples" / "fft2d_distributed_torch.py"]
-    assert {"comm.py", "dfft.py", "api.py"} <= {f.name for f in files}
+              ROOT / "examples" / "fft2d_distributed_torch.py",
+              ROOT / "examples" / "quickstart_torch.py",
+              ROOT / "scripts" / "dist_times.py"]
+    assert {"comm.py", "dfft.py", "api.py", "fftconv.py",
+            "compress.py"} <= {f.name for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())

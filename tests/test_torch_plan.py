@@ -165,3 +165,49 @@ def test_bad_planner_arguments_raise():
     with pytest.raises(ValueError):
         plan.execute_inverse(plan.Plan(64, "r2c", (32,), "torch"),
                              torch.zeros(2, 64))
+
+
+def test_reference_pricing_is_the_default():
+    """A profile that does not set the new fields prices as the reference:
+    dense four-step flops, the reference's pipelined rule."""
+    assert TPU_VALUES.fft_share == 0.0
+    assert TPU_VALUES.pipelined_hides_compute
+    assert plan.CPU_LOCAL.fft_share == 0.0
+    p = plan.Planner(hardware=TPU_VALUES, backends=("hopper",)).plan(
+        16384, "c2c", batch=8193)
+    theirs = jplan.Planner(hardware=jplan.TPU_V5E,
+                           backends=("pallas",)).plan(16384, "c2c",
+                                                      batch=8193)
+    assert p.est_cost == pytest.approx(theirs.est_cost, rel=1e-12)
+
+
+def test_h100_prices_a_kernel_pass_as_a_radix_fft_at_its_share():
+    """Under H100 the four-step kernel's pass is its radix-FFT bound over
+    the share measured on the card; the torch.matmul plans keep the dense
+    pricing."""
+    hw = plan.H100
+    assert 0 < hw.fft_share <= 1
+    batch, n = 8193, 16384
+    p = plan.Planner(backends=("hopper",)).plan(n, "c2c", batch=batch)
+    assert (p.backend, p.factors) == ("hopper", (128, 128))
+    bound = max(5.0 * batch * n * 14 / hw.flops, 16.0 * batch * n / hw.hbm_bw)
+    assert p.est_cost == pytest.approx(bound / hw.fft_share, rel=1e-12)
+    # the dense pricing of the same pass: about 4x the kernel's price
+    dense = plan.Planner(hardware=dataclasses.replace(hw, fft_share=0.0),
+                         backends=("hopper",)).plan(n, "c2c", batch=batch)
+    assert dense.est_cost > 3 * p.est_cost
+    t = plan.Planner(backends=("torch",)).plan(n, "c2c", batch=batch)
+    assert t.backend == "torch" and t.est_cost == pytest.approx(
+        plan.Planner(hardware=dataclasses.replace(hw, fft_share=0.0),
+                     backends=("torch",)).plan(n, "c2c", batch=batch)
+        .est_cost, rel=1e-12)
+
+
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_stage_seconds_is_the_cheapest_candidate(backend):
+    p = plan.Planner(backends=(backend,))
+    for n, kind in ((512, "c2c"), (16384, "r2c"), (7, "c2c")):
+        assert p.stage_seconds(n, kind, 100) == pytest.approx(
+            p.plan(n, kind, batch=100).est_cost, rel=1e-12)
+    # no factorization of at most three factors <= 128
+    assert p.stage_seconds(1 << 26, "c2c", 1) == float("inf")
