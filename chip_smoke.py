@@ -96,14 +96,34 @@ run from the root of a checkout. Phases, each of which raises on failure:
    float64 on rank 0, the shims on (4,) and (2, 2) against the gathered
    plan_nd path and float64, and compressed_psum (each rank its own
    payload) against the sum of the dequantized payloads and the exact
-   sum; every rank ends and is joined.
+   sum; every rank ends and is joined;
+15. serve the LM (repro_torch.launch.serve.ServeLoop, batch 4, 32 new
+   tokens a request, bfloat16 compute) at olmo-1b's width under
+   torch.no_grad(): the FFT-conv LM (olmo-1b with its 16 layers
+   fftconv_mlp) through Planner(backends=("hopper",)) on 8 prompts of 8192
+   tokens, with the launches of the drained run (32 four-step, 32
+   transpose, 16 complex multiply a prefill, none a decode step) and of
+   one prefill alone, (a) each prefill's logits against LM.forward over
+   the same prompt, within 2e-2*max|ref|, and (b) every served row
+   against the same weights served through torch_native (cuFFT), fed the
+   same tokens, and both against that run in float32: the hopper run
+   within 2x torch_native's error; then olmo-1b as published on 4 prompts
+   of 2048 tokens, every served row against LM.forward over the prompt
+   and the tokens served before it, in bfloat16 and in float32: the
+   served rows within 2x the bfloat16 forward's error; printing prefill
+   ms (median of 5; hopper, torch and torch_native for the FFT-conv LM),
+   decode ms a step, tokens/s of the drained loop and peak memory, and
+   traced prefills and decode steps.
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
-at the blocks the sharded convolution hands them; phase 4 prints the
+at the blocks the sharded convolution and one prefill of the FFT-conv LM
+(bfloat16 activations, one prompt) hand them; phase 4 prints the
 H100 profile's estimate of the four-step pass beside its time and fails
 beyond 1.5x; phase 10 prints plan_nd's estimate-mode and measured-mode
 verdicts at the chip shapes. The last lines are the kernel table as one
-JSON object, then the card label, then {"ok": true, "device": {...}}. It
+JSON object (each kernel's launches summed over the counted runs of the
+paths, and by path), then the card label, then {"ok": true, "device":
+{...}}. It
 needs one GPU and exits non-zero, printing no result, without one.
 """
 
@@ -187,6 +207,25 @@ SHARDED_LAUNCHES = {"four_step_fft": 4, "batched_transpose": 14,
 PSUM_N = MIXER_D * 2 * MIXER_D + MIXER_D * MIXER_D + MIXER_D * MIXER_RANK \
     + MIXER_D
 PSUM_COMMS = ("collective", "pipelined:4", "agas", "auto", "measure")
+# phase 15: the LM serving path at olmo-1b's width (src/repro/configs/
+# olmo_1b.py): the FFT-conv LM (every layer fftconv_mlp) serves LM_REQUESTS
+# prompts of LM_PROMPT tokens (nf = 16384, factors (128, 128)) and olmo-1b
+# as published OLMO_REQUESTS prompts of OLMO_PROMPT, batch SERVE_BATCH,
+# SERVE_NEW tokens each. Two bfloat16 computations of the same logits in
+# the same order of operations are held to 2e-2 of their max, the
+# reference's serving tolerance (tests/test_serving.py). Two orders of
+# the same bfloat16 arithmetic (prefill and decode, hopper and cuFFT)
+# differ by the rounding noise of 16 layers, which grows with depth and
+# width to a few 1e-2 of the max; each is held instead against the same
+# weights computed in float32, and must carry at most NOISE_RATIO times
+# the error that bfloat16 gives the path it is compared with
+LM_PROMPT, LM_REQUESTS, OLMO_PROMPT, OLMO_REQUESTS = 8192, 8, 2048, 4
+SERVE_BATCH, SERVE_NEW, SERVE_TOL, NOISE_RATIO = 4, 32, 2e-2, 2.0
+# kernel launches of one FFT-conv layer's prefill (fft_conv: the
+# activations' and the filters' four-step passes, the move in and out, the
+# spectrum product); a decode step launches none
+LM_LAYER_LAUNCHES = {"four_step_fft": 2, "batched_transpose": 2,
+                     "complex_multiply": 1, "fftconv_fused": 0}
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -421,9 +460,10 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
     return out
 
 
-def phase_profile(label, calls) -> None:
-    """One traced run of each (name, call): device time by kernel, and the
-    device's busy share of the call's wall time."""
+def phase_profile(label, calls, top: int = 10) -> None:
+    """One traced run of each (name, call): device time by kernel (the
+    ``top`` longest), and the device's busy share of the call's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for name, run in calls:
@@ -443,7 +483,7 @@ def phase_profile(label, calls) -> None:
         print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
               f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), {ops} device "
               f"ops [{label}]")
-        for e in rows[:10]:
+        for e in rows[:top]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
                   f"{e.key[:90]}")
 
@@ -484,15 +524,16 @@ def decaying_filter(n: int, gen) -> torch.Tensor:
         -torch.arange(n, device="cuda", dtype=torch.float32) / 64)
 
 
-def mixer_blocks(nf: int):
-    """What fft_conv hands the kernels on the mixer's path: the four-step
+def conv_blocks(nf: int, b: int = MIXER_B, length: int = MIXER_S):
+    """What fft_conv hands the kernels on a mixer's path: the four-step
     (permuted) gets the padded activations (B, D, nf) and filters (D, nf);
     the transpose gets two views, v (B, L, D), the first half of
     x @ w_in (B, L, 2D), and the cropped output (B, D, L) of (B, D, nf),
     given here as (array shape, cropped shape)."""
-    return (((MIXER_B, MIXER_D, nf), (MIXER_D, nf)),
-            (((MIXER_B, MIXER_S, 2 * MIXER_D), (MIXER_B, MIXER_S, MIXER_D)),
-             ((MIXER_B, MIXER_D, nf), (MIXER_B, MIXER_D, MIXER_S))))
+    d = MIXER_D
+    return (((b, d, nf), (d, nf)),
+            (((b, length, 2 * d), (b, length, d)),
+             ((b, d, nf), (b, d, length))))
 
 
 def phase_conv_kernels(gen, factors, errs) -> dict:
@@ -501,7 +542,7 @@ def phase_conv_kernels(gen, factors, errs) -> dict:
     ``errs``' entries for them); returns the max errors at the paths'
     shapes."""
     nf = factors[0] * factors[1]
-    four_step_blocks, move_sources = mixer_blocks(nf)
+    four_step_blocks, move_sources = conv_blocks(nf)
     for shape in four_step_blocks:
         x = (randn(shape, gen), randn(shape, gen))
         err, scale = four_step_error(x, factors, permuted=True)
@@ -617,6 +658,42 @@ def phase_sharded_conv_kernels(gen, planner, errs) -> None:
     print(f"checked four_step_fft at the sharded conv's {four}, "
           f"complex_multiply at its twiddles {cmul} (limit 1e-5) and "
           f"batched_transpose (exact) at its moves {moves}")
+
+
+def phase_lm_kernels(gen, factors, errs) -> None:
+    """The four-step, transpose and complex-multiply kernels against their
+    plain versions at the blocks one prefill of the FFT-conv LM hands them
+    (phase 15: one prompt of LM_PROMPT tokens, bfloat16 activations), added
+    to ``errs``' entries for them."""
+    nf = factors[0] * factors[1]
+    four, moves = conv_blocks(nf, 1, LM_PROMPT)
+    for shape in four:
+        x = (randn(shape, gen), randn(shape, gen))
+        err, scale = four_step_error(x, factors, permuted=True)
+        check(err <= 1e-4 * scale, f"four_step_fft {shape} {factors} "
+              f"permuted (LM prefill): err {err} > 1e-4 * {scale}")
+        errs["four_step_fft"][f"LM prefill {shape} permuted"] = err
+        errs["four_step_worst_rel"] = max(errs["four_step_worst_rel"],
+                                          err / scale)
+        del x
+    # v is bfloat16 (x @ w_in in the compute dtype), the output float32
+    for (full, crop), dtype in zip(moves, (torch.bfloat16, torch.float32)):
+        x = randn(full, gen, dtype)[tuple(slice(0, c) for c in crop)]
+        errs["batched_transpose"][f"LM prefill {crop} {dtype} view of "
+                                  f"{full}"] = transpose_error(x)
+        del x
+    a = tuple(randn(four[0], gen) for _ in "ri")
+    b = tuple(randn(four[1], gen) for _ in "ri")
+    err = cmul_error(a, b)
+    check(err <= 1e-5, f"complex_multiply {four[0]} x {four[1]} (LM "
+          f"prefill): err {err} > 1e-5")
+    errs["complex_multiply"] = max(errs["complex_multiply"], err)
+    del a, b
+    print(f"checked four_step_fft permuted at the LM prefill's {four} "
+          f"{factors}, batched_transpose (exact) at its moves of "
+          f"{[crop for _, crop in moves]} (bfloat16, float32 views) and "
+          f"complex_multiply at {four[0]} x {four[1]} (err {err:.3e}, limit "
+          "1e-5)")
 
 
 def mixer_reference(mixer, x) -> torch.Tensor:
@@ -1662,6 +1739,255 @@ def phase_gloo_ranks() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path (phase 15)
+# ---------------------------------------------------------------------------
+
+
+def serve(model, cfg, prompts, planner=None, forced=None) -> dict:
+    """Serve ``prompts`` through ServeLoop (batch SERVE_BATCH, SERVE_NEW
+    tokens each, caches of the prompt length + SERVE_NEW) on ``model``,
+    keeping every logits row a request takes a token from. ``forced`` (rid
+    -> tokens) feeds each request those tokens instead of its own argmax
+    (teacher forcing). Returns the rows and tokens by request, the kernel
+    launches of the drained run alone, the ms of each step that admitted
+    no request, the run's seconds and its peak device memory."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import Request, ServeLoop
+    rows, decode_ms = {}, []
+
+    class Recorded(ServeLoop):
+        def next_token(self, req, logits):
+            rows.setdefault(req.rid, []).append(logits.clone())
+            if forced is not None:
+                return forced[req.rid][len(req.out)]
+            return super().next_token(req, logits)
+
+        def step(self):
+            admits = bool(self.queue) and None in self.slots
+            t0 = time.perf_counter()
+            super().step()
+            torch.cuda.synchronize()
+            if not admits:
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+
+    loop = Recorded(cfg, SERVE_BATCH, len(prompts[0]) + SERVE_NEW,
+                    model=model, planner=planner)
+    for rid, prompt in enumerate(prompts):
+        loop.submit(Request(rid, prompt, SERVE_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop.drain()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = {r.rid: r.out for r in loop.done}
+    del loop
+    torch.cuda.empty_cache()
+    check(sorted(tokens) == list(range(len(prompts))) and all(
+        len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in t)
+        for t in tokens.values()), f"{cfg.name}: served tokens")
+    return dict(rows=rows, tokens=tokens, launches=launches,
+                decode_ms=decode_ms, seconds=seconds, peak=peak)
+
+
+def float32_twin(model, cfg, planner=None):
+    """(an LM of ``cfg`` in float32 compute holding ``model``'s weights,
+    its config): the float32 control of a bfloat16 run."""
+    import dataclasses
+    from repro_torch.models import LM
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    twin = LM(cfg32, planner=planner, generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    twin.load_state_dict(model.state_dict())
+    return twin, cfg32
+
+
+def rel_err(cfg, ours, ref) -> float:
+    """max |ours - ref| / max |ref| over the vocabulary's columns of two
+    logits rows; both must hold -1e30 (as bfloat16 holds it, 2^-8 off)
+    in the padding columns beyond it."""
+    v = cfg.vocab_size
+    ours, ref = ours.float(), ref.float()
+    for row in (ours, ref):
+        check(((row[..., v:] + 1e30).abs() <= 2 ** -8 * 1e30).all().item(),
+              f"{cfg.name}: the padding columns are not masked")
+    ours, ref = ours[..., :v], ref[..., :v]
+    return ((ours - ref).abs().max() / ref.abs().max()).item()
+
+
+def as_batch(tokens) -> dict:
+    return {"tokens": torch.as_tensor(tokens, device="cuda").long()[None]}
+
+
+def decode_input(model, length: int, max_len: int):
+    """A batch cache of SERVE_BATCH sequences of ``length`` tokens and one
+    decode step's tokens, for a traced step (each call writes the same
+    positions)."""
+    cache = model.init_cache(SERVE_BATCH, max_len)
+    cache["len"].fill_(length)
+    step = {"tokens": torch.zeros((SERVE_BATCH, 1), dtype=torch.long,
+                                  device="cuda")}
+    return cache, step
+
+
+def print_serve(label, name, res, prefill, prompt_len) -> None:
+    n = sum(len(t) for t in res["tokens"].values())
+    print(f"serve {name}: {len(res['tokens'])} requests of {prompt_len} "
+          f"tokens, batch {SERVE_BATCH}, {SERVE_NEW} new each: prefill "
+          + ", ".join(f"{k} {d:.3f} ms (wall {w:.3f})"
+                      for k, (d, w) in prefill.items())
+          + f" a request (median of 5); decode "
+          f"{statistics.median(res['decode_ms']):.3f} ms a step (median of "
+          f"{len(res['decode_ms'])} steps that admitted none); "
+          f"{n / res['seconds']:.1f} tok/s drained ({n} tokens in "
+          f"{res['seconds']:.3f} s, prefills included); peak "
+          f"{res['peak'] / 2 ** 30:.2f} GiB; launches {res['launches']} "
+          f"[{label}]")
+
+
+def phase_fftconv_lm(label, olmo, planners) -> dict:
+    """The FFT-conv LM at olmo-1b's width served through the hopper
+    planner: its launches, (a) each prefill against forward over the same
+    prompt, (b) the whole run against the same weights served through
+    torch_native (cuFFT) fed the same tokens; then its times and a traced
+    prefill. Returns the launches of the served run."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(olmo, segments=(("fftconv_mlp",
+                                               olmo.num_layers),))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    per_prefill = {k: v * cfg.num_layers for k, v in LM_LAYER_LAUNCHES.items()}
+    with torch.no_grad():
+        model = LM(cfg, planner=planners["hopper"], generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        res = serve(model, cfg, prompts)
+        want = {k: v * LM_REQUESTS for k, v in per_prefill.items()}
+        check(res["launches"] == want, f"FFT-conv LM served launches "
+              f"{res['launches']}, expected {want} ({per_prefill} a prefill, "
+              "none a decode step)")
+        err_a = []
+        for rid, prompt in enumerate(prompts):
+            full, _ = model(as_batch(prompt))
+            check(torch.isfinite(full).all().item(), "forward non-finite")
+            err_a.append(rel_err(cfg, res["rows"][rid][0], full[0, -1]))
+            del full
+        check(max(err_a) <= SERVE_TOL, f"FFT-conv LM prefill against "
+              f"forward: err/max {max(err_a)} > {SERVE_TOL}")
+        native = serve(model, cfg, prompts, planner=planners["torch_native"],
+                       forced=res["tokens"])
+        model.planner = planners["hopper"]
+        check(native["launches"]["four_step_fft"] == 0, "the torch_native "
+              "run launched the four-step kernel")
+        twin, cfg32 = float32_twin(model, cfg, planners["torch_native"])
+        truth = serve(twin, cfg32, prompts, forced=res["tokens"])
+        del twin
+        torch.cuda.empty_cache()
+
+        def errs(run, ref):
+            return [rel_err(cfg, a, b) for rid in run["rows"]
+                    for a, b in zip(run["rows"][rid], ref["rows"][rid])]
+        err_b, hopper32, native32 = (errs(res, native), errs(res, truth),
+                                     errs(native, truth))
+        check(len(err_b) == LM_REQUESTS * SERVE_NEW
+              and max(hopper32) <= NOISE_RATIO * max(native32),
+              f"FFT-conv LM served through hopper: err/max {max(hopper32)} "
+              f"against float32, more than {NOISE_RATIO} x torch_native's "
+              f"{max(native32)}")
+        print(f"serve FFT-conv LM ({cfg.num_layers} fftconv_mlp layers, d "
+              f"{cfg.d_model}, {cfg.compute_dtype}): launches {res['launches']}"
+              f" ({per_prefill} a prefill); (a) prefill against forward "
+              f"err/max {max(err_a):.3e} (tol {SERVE_TOL}); (b) "
+              f"{len(err_b)} teacher-forced rows: hopper against torch_native"
+              f" (cuFFT) err/max {max(err_b):.3e} (median "
+              f"{statistics.median(err_b):.3e}); against the float32 run "
+              f"(torch_native) hopper {max(hopper32):.3e}, torch_native "
+              f"{max(native32):.3e} (limit {NOISE_RATIO} x)")
+        del native, truth
+        batch = as_batch(prompts[0])
+        max_len = LM_PROMPT + SERVE_NEW
+        _, one, _ = counted(lambda: model.prefill(batch, max_len))
+        check(one == per_prefill, f"one prefill launched {one}, expected "
+              f"{per_prefill}")
+        prefill = {}
+        for name, p in planners.items():
+            model.planner = p
+            prefill[name] = time_variant(lambda: model.prefill(batch, max_len),
+                                         5)
+        model.planner = planners["hopper"]
+        print_serve(label, "FFT-conv LM", res, prefill, LM_PROMPT)
+        cache, step = decode_input(model, LM_PROMPT, max_len)
+        phase_profile(label, [
+            (f"FFT-conv LM prefill {LM_PROMPT} tokens hopper",
+             lambda: model.prefill(batch, max_len)),
+            (f"FFT-conv LM decode step batch {SERVE_BATCH} at {LM_PROMPT}",
+             lambda: model.decode_step(cache, step))], top=25)
+        del cache
+    launches = res["launches"]
+    del model, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_olmo(label, olmo) -> None:
+    """olmo-1b as published, served; each served logits row held against
+    forward over the prompt and the tokens served before it."""
+    import numpy as np
+    from repro_torch.models import LM
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, olmo.vocab_size, OLMO_PROMPT).astype(np.int32)
+               for _ in range(OLMO_REQUESTS)]
+    with torch.no_grad():
+        model = LM(olmo, generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        res = serve(model, olmo, prompts)
+        check(sum(res["launches"].values()) == 0,
+              f"olmo-1b launched {res['launches']}")
+        twin, _ = float32_twin(model, olmo)
+        errs, served32, forward32 = [], [], []
+        for rid, prompt in enumerate(prompts):
+            seq = as_batch(np.concatenate([prompt, res["tokens"][rid][:-1]]))
+            rows = model(seq)[0][0, OLMO_PROMPT - 1:]
+            rows32 = twin(seq)[0][0, OLMO_PROMPT - 1:]
+            check(torch.isfinite(rows).all().item()
+                  and len(rows) == len(res["rows"][rid]), "olmo forward")
+            for served, fwd, fwd32 in zip(res["rows"][rid], rows, rows32):
+                errs.append(rel_err(olmo, served, fwd))
+                served32.append(rel_err(olmo, served, fwd32))
+                forward32.append(rel_err(olmo, fwd, fwd32))
+            del rows, rows32
+        del twin
+        check(max(served32) <= NOISE_RATIO * max(forward32),
+              f"olmo-1b served: err/max {max(served32)} against the float32 "
+              f"forward, more than {NOISE_RATIO} x the bfloat16 forward's "
+              f"{max(forward32)}")
+        print(f"serve olmo-1b ({olmo.num_layers} layers, d {olmo.d_model}, "
+              f"{olmo.compute_dtype}): {len(errs)} served rows against "
+              f"forward err/max {max(errs):.3e} (median "
+              f"{statistics.median(errs):.3e}); against the float32 forward"
+              f" served {max(served32):.3e}, forward {max(forward32):.3e} "
+              f"(limit {NOISE_RATIO} x)")
+        batch = as_batch(prompts[0])
+        prefill = {"olmo-1b": time_variant(
+            lambda: model.prefill(batch, OLMO_PROMPT + SERVE_NEW), 5)}
+        print_serve(label, "olmo-1b", res, prefill, OLMO_PROMPT)
+        cache, step = decode_input(model, OLMO_PROMPT,
+                                   OLMO_PROMPT + SERVE_NEW)
+        phase_profile(label, [
+            (f"olmo-1b prefill {OLMO_PROMPT} tokens",
+             lambda: model.prefill(batch, OLMO_PROMPT + SERVE_NEW)),
+            (f"olmo-1b decode step batch {SERVE_BATCH} at {OLMO_PROMPT}",
+             lambda: model.decode_step(cache, step))], top=15)
+    del model, res, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1710,6 +2036,7 @@ def main() -> int:
     conv_factors = planner.plan(2 * MIXER_S, "c2c", permuted=True).factors
     errs.update(phase_conv_kernels(gen, conv_factors, errs))
     phase_sharded_conv_kernels(gen, planner, errs)
+    phase_lm_kernels(gen, conv_factors, errs)
     print("kernels " + json.dumps(errs))
 
     # phase 3: the N-D FFT path at real size
@@ -1779,30 +2106,50 @@ def main() -> int:
           f"12 took {t12 - t10:.1f} s, 13 took {t13 - t12:.1f} s, 14 took "
           f"{t14 - t13:.1f} s, 11 took {time.perf_counter() - t14:.1f} s")
 
+    # phase 15: the LM serving path at olmo-1b's width
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    olmo = get_config("olmo-1b")
+    lm_launches = phase_fftconv_lm(label, olmo, {
+        "hopper": planner, "torch": planners["torch"],
+        "torch_native": Planner(backends=("torch_native",))})
+    phase_olmo(label, olmo)
+    print(f"LM phase: 15 took {time.perf_counter() - t0:.1f} s")
+
+    # each kernel's launches in the counted run of every path: the N-D FFT
+    # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving (15)
+    paths = {"nd_fft": launches, "mixer": mixer_launches,
+             "fftconv_fused": fused_launches, "lm_serve": lm_launches}
+
+    def counts(name):
+        by_path = {path: c[name] for path, c in paths.items()}
+        check(sum(by_path.values()) > 0, f"no path launched {name}")
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
     head = times["rfftn column pass"]
     table = {"kernels": [
         dict(name="four_step_fft", route="cuda",
              source="src/repro_torch/kernels/dft_matmul/dft_matmul.cu",
              replaces="src/repro/kernels/dft_matmul/dft_matmul.py:76",
-             launches=launches["four_step_fft"],
+             **counts("four_step_fft"),
              max_abs_err=max(errs["four_step_fft"].values()),
              **head),
         dict(name="batched_transpose", route="cuda",
              source="src/repro_torch/kernels/transpose/transpose.cu",
              replaces="src/repro/kernels/transpose/transpose.py:27",
-             launches=launches["batched_transpose"],
+             **counts("batched_transpose"),
              max_abs_err=max(errs["batched_transpose"].values()),
              **times["transpose"]),
         dict(name="complex_multiply", route="cuda",
              source="src/repro_torch/kernels/twiddle/twiddle.cu",
              replaces="src/repro/kernels/twiddle/twiddle.py:23",
-             launches=mixer_launches["complex_multiply"],
+             **counts("complex_multiply"),
              max_abs_err=errs["complex_multiply"],
              **times["complex_multiply"]),
         dict(name="fftconv_fused", route="cuda",
              source="src/repro_torch/kernels/fftconv/fftconv.cu",
              replaces="src/repro/kernels/fftconv/fftconv.py:80",
-             launches=fused_launches["fftconv_fused"],
+             **counts("fftconv_fused"),
              max_abs_err=errs["fftconv_fused"],
              **times["fftconv_fused"]),
     ]}

@@ -1,5 +1,10 @@
-"""PyTorch/CUDA port of the planned N-D FFT (``repro``'s JAX package is the
-reference). Entry points run on the GPU unless given ``device="cpu"``."""
+"""PyTorch/CUDA port of the planned N-D FFT and of the LM that serves with
+it (``repro``'s JAX package is the reference). Entry points run on the GPU
+unless given ``device="cpu"``."""
 
 from .core import *  # noqa: F401,F403
-from .core import __all__
+from .core import __all__ as _core_all
+from .launch.serve import Request, ServeLoop
+from .models import LM
+
+__all__ = list(_core_all) + ["LM", "Request", "ServeLoop"]

@@ -6,19 +6,22 @@ The FFT library's state is the plan. ``plan_from_reference`` and
 plan with the very same factorization, so both packages can run one
 recipe. Backend names map jnp -> torch, pallas -> hopper, xla_native ->
 torch_native. The FFT-conv mixer has weights: ``fftconv_mixer_from_reference``
-carries the reference's parameters across.
+carries the reference's parameters across, ``lm_from_reference`` those of
+a whole LM, and ``cache_from_reference`` its decode cache.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .core.api import NdPlan
-from .core.plan import Plan, Planner
+from .core.plan import Plan, Planner, resolve_device
 from .models.blocks import FFTConvMixer
+from .models.config import ArchConfig
+from .models.lm import LM
 
 BACKEND_NAMES = {
     "jnp": "torch",
@@ -73,3 +76,65 @@ def fftconv_mixer_from_reference(p: Mapping[str, np.ndarray],
                                  f"mixer needs {tuple(param.shape)}")
             param.copy_(value)
     return mixer
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 (which numpy lacks) through
+    float32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_from_reference(params: Mapping[str, Any], cfg: ArchConfig,
+                      planner: Optional[Planner] = None,
+                      device=None) -> LM:
+    """The reference's LM parameters (``repro.models.lm.init_params``' tree,
+    as numpy arrays) as an ``LM`` of ``cfg`` on ``device`` (None: the GPU).
+    Each segment's leading layer axis is unstacked into the port's layers;
+    a parameter missing on either side or of another shape raises."""
+    model = LM(cfg, planner=planner, device=device)
+    flat: Dict[str, np.ndarray] = {"embed": params["embed"]}
+    if "lm_head" in params:
+        flat["lm_head"] = params["lm_head"]
+    for name, a in params["final_norm"].items():
+        flat[f"final_norm.{name}"] = a
+    i = 0
+    for seg, (_, count) in zip(params["segments"], cfg.resolved_segments()):
+        for j in range(count):
+            for part, tree in seg["layers"].items():
+                for name, a in tree.items():
+                    flat[f"layers.{i + j}.{part}.{name}"] = np.asarray(a)[j]
+        i += count
+    ours = dict(model.named_parameters())
+    if set(ours) != set(flat):
+        raise ValueError(f"parameters the reference lacks: "
+                         f"{sorted(set(ours) - set(flat))}; the port lacks: "
+                         f"{sorted(set(flat) - set(ours))}")
+    with torch.no_grad():
+        for name, param in ours.items():
+            value = _tensor(flat[name])
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
+                                 f"LM needs {tuple(param.shape)}")
+            param.copy_(value)
+    return model
+
+
+def cache_from_reference(cache: Mapping[str, Any],
+                         device=None) -> Dict[str, Any]:
+    """The reference's decode cache (``prefill``'s or ``init_cache``'s, as
+    numpy arrays: ``len`` and per segment ``k``/``v`` or ``v_hist``
+    stacked over its layers) as the port's, one entry per layer, on
+    ``device`` (None: the GPU)."""
+    dev = resolve_device(device)
+    layers = []
+    for seg in cache["segments"]:
+        if not seg or set(seg) - {"k", "v", "v_hist"}:
+            raise ValueError(f"a segment cache with {sorted(seg)}: the port "
+                             "holds attention and FFT-conv caches only")
+        count = len(next(iter(seg.values())))
+        layers += [{name: _tensor(np.asarray(a)[j]).to(dev)
+                    for name, a in seg.items()} for j in range(count)]
+    return {"len": _tensor(cache["len"]).to(dev), "layers": layers}

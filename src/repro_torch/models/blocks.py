@@ -1,20 +1,272 @@
-"""The FFT-convolution mixer (the paper's FFT as a sequence mixer), ported
-from ``repro.models.blocks`` (``fftconv_meta``, ``fftconv_fwd``), with the
-reference's sequence-sharded branch. The reference finds its mesh and the
-sequence axis through the model stack's context (``current_mesh``,
-``current_rules``); the port, which has no model stack yet, is given them.
+"""Transformer building blocks, ported from ``repro.models.blocks``: norms,
+RoPE, GQA attention (flash-style chunked for long prefill), the SwiGLU /
+GELU MLP, and the FFT-convolution mixer (the paper's FFT as a sequence
+mixer) with its one-token decode step and the reference's
+sequence-sharded branch.
+
+Each function takes its parameters as a mapping (an ``nn.ParameterDict``
+in the LM) under the reference's names. Attention is plain JAX in the
+reference, with no Pallas kernel, so its port is plain PyTorch. Where the
+reference asks an einsum for float32 results of bfloat16 operands
+(``preferred_element_type``), the port rounds the operands as the
+reference does and multiplies them in float32, which is exact for the
+products. The out-projections multiply in the compute dtype, which
+accumulates in float32 and rounds once, as the reference's float32 result
+cast back does; its ``reduce_dtype`` only changes the partial sums that
+cross devices and waits for the port of ``parallel/``.
+MoE and M-RoPE wait for a later slice (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.comm import mesh_sizes
 from ..core.fftconv import fft_conv, fft_conv_seq_sharded, materialize_filter
 from ..core.plan import Planner, resolve_device
+from .config import ArchConfig
+from .params import ParamMeta, make_param
+
+Params = Mapping[str, torch.Tensor]
+
+
+def _write_at(buf: torch.Tensor, u: torch.Tensor,
+              start: torch.Tensor) -> torch.Tensor:
+    """``buf[b, start[b]:start[b] + S] = u[b]`` for every row b, in place,
+    each start clamped so that the slice fits, as the reference's
+    ``dynamic_update_slice`` clamps it. Returns ``buf``."""
+    s = u.shape[1]
+    start = start.long().clamp(0, buf.shape[1] - s)
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf[rows, start[:, None] + torch.arange(s, device=buf.device)] = \
+        u.to(buf.dtype)
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def norm_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
+    d = cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"scale": ParamMeta((d,), init="ones")}
+    if cfg.norm == "layernorm":
+        return {"scale": ParamMeta((d,), init="ones"),
+                "bias": ParamMeta((d,), init="zeros")}
+    return {}  # nonparam_ln (olmo): no learnable parameters
+
+
+def apply_norm(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p["scale"].float()
+    else:
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, correction=0, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + 1e-5)
+        if cfg.norm == "layernorm":
+            y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions: torch.Tensor, hd: int,
+                 theta: float = 1e4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, hd//2)."""
+    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                        device=positions.device) / hd))
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd); cos/sin (B, S, hd//2)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
+    if cfg.rope == "none":
+        return None
+    if cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, "
+                                  "Queue 1 item 5)")
+    return _rope_angles(positions, cfg.hd)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
+def attention_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    m = {"wq": ParamMeta((d, h, hd)), "wk": ParamMeta((d, kv, hd)),
+         "wv": ParamMeta((d, kv, hd)), "wo": ParamMeta((h, hd, d))}
+    if cfg.qkv_bias:
+        m["bq"] = ParamMeta((h, hd), init="zeros")
+        m["bk"] = ParamMeta((kv, hd), init="zeros")
+        m["bv"] = ParamMeta((kv, hd), init="zeros")
+    return m
+
+
+def _qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, rope) -> Tuple:
+    dt = x.dtype
+
+    def proj(w):                        # einsum("bsd,dhk->bshk")
+        return (x @ w.to(dt).flatten(1)).unflatten(-1, w.shape[1:])
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", out, wo) in out's dtype."""
+    return out.flatten(2) @ p["wo"].to(out.dtype).flatten(0, 1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_kv: int = 1024,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Chunked online-softmax attention (the reference's pure-JAX flash).
+
+    q (B, Sq, H, hd); k/v (B, Sk, KV, hd) with H = KV * G. Memory is
+    O(Sq * block_kv) instead of O(Sq * Sk). ``block_kv`` shrinks to the
+    largest divisor of Sk not above it, as in the reference.
+    """
+    b, sq, h, hd = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(b, sq, kvh, g, hd).float() * scale
+    qk = qr.to(k.dtype).float()
+
+    block_kv = min(block_kv, sk)
+    while sk % block_kv:
+        block_kv -= 1
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+
+    acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32,
+                      device=q.device)
+    m_run = torch.full((b, sq, kvh, g), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, sq, kvh, g), dtype=torch.float32,
+                        device=q.device)
+    for j in range(sk // block_kv):
+        blk = slice(j * block_kv, (j + 1) * block_kv)
+        s = torch.einsum("bqkgd,bskd->bqkgs", qk, k[:, blk].float())
+        if causal:
+            kv_pos = j * block_kv + torch.arange(block_kv, device=q.device)
+            mask = q_pos[:, None] >= kv_pos[None, :]
+            s = torch.where(mask[None, :, None, None, :], s, -1e30)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        pexp = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgs,bskd->bqkgd", pexp.to(v.dtype).float(), v[:, blk].float())
+        l_run = l_run * corr + pexp.sum(-1)
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention against a (B, S, KV, hd) cache."""
+    b, sq, h, hd = q.shape
+    _, sk, kvh, _ = k_cache.shape
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qr = (q.reshape(b, sq, kvh, g, hd) * scale).to(k_cache.dtype)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qr.float(), k_cache.float())
+    mask = (torch.arange(sk, device=q.device)[None, :]
+            < cache_len[:, None])                               # (B, S)
+    s = torch.where(mask[:, None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                  positions: torch.Tensor, cache: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (output, updated cache). cache=None -> causal
+    self-attention; else x's k/v are written into the cache's (B, S, KV,
+    hd) ``k``/``v`` at ``len`` (in place) and attended to up to it."""
+    rope = rope_tables(cfg, positions)
+    q, k, v = _qkv(p, cfg, x, rope)
+    if cache is None:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        idx = cache["len"]                                      # (B,)
+        kc = _write_at(cache["k"], k, idx)
+        vc = _write_at(cache["v"], v, idx)
+        out = decode_attention(q, kc, vc, idx + 1)
+        cache = {"k": kc, "v": vc, "len": idx + 1}
+    return _out_proj(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
+    d, f = cfg.d_model, cfg.d_ff
+    m = {"w_up": ParamMeta((d, f)), "w_down": ParamMeta((f, d))}
+    if cfg.mlp_act == "silu":
+        m["w_gate"] = ParamMeta((d, f))
+    return m
+
+
+def mlp_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    up = x @ p["w_up"].to(dt)
+    if cfg.mlp_act == "silu":
+        up = F.silu(x @ p["w_gate"].to(dt)) * up
+    else:
+        up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return up @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# FFT-convolution mixer (paper technique in the LM stack)
+# ---------------------------------------------------------------------------
+
+
+def fftconv_meta(d_model: int, rank: int) -> Dict[str, ParamMeta]:
+    """The reference's ``fftconv_meta(cfg)`` at ``cfg.d_model`` and
+    ``cfg.fftconv_rank``."""
+    d = d_model
+    return {"w_in": ParamMeta((d, 2 * d)),
+            "filt": ParamMeta((d, rank), scale=0.2),
+            "skip": ParamMeta((d,), init="ones"),
+            "w_out": ParamMeta((d, d))}
 
 
 class FFTConvMixer(nn.Module):
@@ -53,30 +305,54 @@ class FFTConvMixer(nn.Module):
         dev = resolve_device(device)
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
-
-        def normal(shape, scale):
-            w = torch.randn(shape, generator=gen, device=gen.device) * scale
-            return nn.Parameter(w.to(dev))
-
-        d = d_model
         self.planner = planner
-        self.w_in = normal((d, 2 * d), 0.02)
-        self.filt = normal((d, rank), 0.2)
-        self.skip = nn.Parameter(torch.ones(d, device=dev))
-        self.w_out = normal((d, d), 0.02)
+        for name, meta in fftconv_meta(d_model, rank).items():
+            setattr(self, name, nn.Parameter(make_param(meta, gen, dev)))
+
+    def project(self, x: torch.Tensor):
+        """(v, gate): ``x @ w_in`` split in two."""
+        return (x @ self.w_in.to(x.dtype)).chunk(2, dim=-1)
 
     def forward(self, x: torch.Tensor,
                 seq_axis_sharded: bool = False) -> torch.Tensor:
-        dt = x.dtype
-        v, gate = (x @ self.w_in.to(dt)).chunk(2, dim=-1)
+        return self.mix(*self.project(x), seq_axis_sharded=seq_axis_sharded)
+
+    def mix(self, v: torch.Tensor, gate: torch.Tensor,
+            seq_axis_sharded: bool = False) -> torch.Tensor:
+        """The mixer's output from its projection (``project``)."""
+        dt = v.dtype
         if seq_axis_sharded and self.mesh is not None:
-            s = x.shape[1] * mesh_sizes(self.mesh)[self.axis]
+            s = v.shape[1] * mesh_sizes(self.mesh)[self.axis]
             filt = materialize_filter(self.filt.float(), s)
             y = fft_conv_seq_sharded(v, filt, self.mesh, self.axis,
                                      planner=self.planner, comm=self.comm)
         else:
-            filt = materialize_filter(self.filt.float(), x.shape[1])
-            y = fft_conv(v, filt, planner=self.planner, device=x.device)
+            filt = materialize_filter(self.filt.float(), v.shape[1])
+            y = fft_conv(v, filt, planner=self.planner, device=v.device)
         y = y + v * self.skip.to(dt)
-        y = y * torch.nn.functional.silu(gate)
+        y = y * F.silu(gate)
         return y @ self.w_out.to(dt)
+
+    def decode(self, x: torch.Tensor, hist: torch.Tensor,
+               pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One-token long-conv step (the reference's ``fftconv_decode``):
+        y_t = sum_{j<=t} k[t-j] v_j over the cached value history, with the
+        filters materialised over the history's length. x (B, 1, d); hist
+        (B, S_max, d), updated in place with this step's v at ``pos``; pos
+        (B,) the current index. Returns (output, hist)."""
+        dt = x.dtype
+        s_max = hist.shape[1]
+        v, gate = self.project(x)
+        hist = _write_at(hist, v, pos)
+        filt = materialize_filter(self.filt.float(), s_max)     # (d, S)
+        # the taps by lag, gathered in the history's (B, S, d) layout: lags
+        # past the end take the last tap (the reference clips them), and
+        # negative ones the zero row appended at index S
+        taps = torch.cat([filt.T, filt.new_zeros((1, filt.shape[0]))])
+        lag = (pos.long()[:, None]
+               - torch.arange(s_max, device=x.device)[None, :])  # (B, S)
+        kk = taps[torch.where(lag >= 0, lag.clamp(max=s_max - 1), s_max)]
+        y = (hist * kk).sum(1, keepdim=True)                    # float32
+        y = y.to(dt) + v * self.skip.to(dt)
+        y = y * F.silu(gate)
+        return y @ self.w_out.to(dt), hist

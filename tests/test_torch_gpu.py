@@ -6,6 +6,7 @@ so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import datetime
 
 import numpy as np
@@ -22,7 +23,8 @@ from repro_torch.kernels import (complex_multiply, complex_multiply_ref,
 from repro_torch.kernels.fftconv.ref import (fftconv_fused_plain,
                                              filter_spectrum_plain)
 from repro_torch.core import variants
-from repro_torch.models import FFTConvMixer
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import LM, FFTConvMixer
 
 pytestmark = pytest.mark.gpu
 
@@ -214,6 +216,42 @@ def test_kernels_and_the_mixer_refuse_autograd(cuda):
         mixer(u)
     with torch.no_grad():
         assert mixer(u).shape == u.shape
+
+
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    # a hybrid LM at the olmo smoke width in float32 on the same weights:
+    # prefill through the hopper planner launches two four-step, two
+    # transpose and one complex-multiply kernel per FFT-conv layer, decode
+    # none; logits within the kernels' 2e-4 of max|cpu|
+    cfg = dataclasses.replace(get_smoke_config("olmo_1b"), segments=(
+        ("attn_mlp", 1), ("fftconv_mlp", 2)))
+    planner = Planner(backends=("hopper",))
+    model = LM(cfg, planner=planner,
+               generator=torch.Generator(device=cuda).manual_seed(0))
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    lg, cache = model.prefill({"tokens": toks[:, :60].to(cuda)}, 64)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"four_step_fft": 4,
+                                       "batched_transpose": 4,
+                                       "complex_multiply": 2,
+                                       "fftconv_fused": 0}
+    want, want_cache = cpu.prefill({"tokens": toks[:, :60]}, 64)
+    steps = [(lg, want)]
+    for i in range(60, 64):
+        lg, cache = model.decode_step(cache, {"tokens": toks[:, i:i + 1]
+                                              .to(cuda)})
+        want, want_cache = cpu.decode_step(want_cache,
+                                           {"tokens": toks[:, i:i + 1]})
+        steps.append((lg, want))
+    assert sum(kernels.launch_counts().values()) == 10
+    for ours, plain in steps:
+        assert ours.device.type == "cuda"
+        assert (ours.cpu() - plain).abs().max().item() <= \
+            2e-4 * plain.abs().max().item()
 
 
 # kernel launches of one call of each variant: the column pass is the

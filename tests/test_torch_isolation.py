@@ -31,10 +31,14 @@ def test_import_loads_neither_jax_nor_the_reference():
                                     "repro_torch.core.api",
                                     "repro_torch.core.fftconv",
                                     "repro_torch.models.blocks",
-                                    "repro_torch.optim.compress"])
+                                    "repro_torch.optim.compress",
+                                    "repro_torch.models.lm",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.configs"])
 def test_the_distributed_modules_load_neither_jax_nor_the_reference(module):
-    """Each module of the distributed layer, imported alone with
-    torch.distributed, pulls in no JAX and nothing of the JAX package."""
+    """Each module of the distributed layer and of the model stack,
+    imported alone with torch.distributed, pulls in no JAX and nothing of
+    the JAX package."""
     code = (f"import sys, torch.distributed, {module}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -51,8 +55,8 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
               ROOT / "examples" / "fft2d_distributed_torch.py",
               ROOT / "examples" / "quickstart_torch.py",
               ROOT / "scripts" / "dist_times.py"]
-    assert {"comm.py", "dfft.py", "api.py", "fftconv.py",
-            "compress.py"} <= {f.name for f in files}
+    assert {"comm.py", "dfft.py", "api.py", "fftconv.py", "compress.py",
+            "lm.py", "serve.py", "olmo_1b.py"} <= {f.name for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
