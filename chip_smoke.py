@@ -113,7 +113,31 @@ run from the root of a checkout. Phases, each of which raises on failure:
    served rows within 2x the bfloat16 forward's error; printing prefill
    ms (median of 5; hopper, torch and torch_native for the FFT-conv LM),
    decode ms a step, tokens/s of the drained loop and peak memory, and
-   traced prefills and decode steps.
+   traced prefills and decode steps;
+16. serve the other layer kinds the same way (bfloat16 compute, weights
+   cast once, 4 prompts of 2048 tokens, batch 4, 16 new tokens each):
+   xlstm-1.3b (mLSTM, sLSTM), zamba2-7b (Mamba2 and its shared attention
+   block), qwen2-vl-7b (M-RoPE), musicgen-large (rope none) in full, and
+   phi3.5-moe at full width on 8 of its 32 layers; none launches a kernel
+   of the port. Each prefill is held against forward over its prompt
+   within 2e-2*max|ref|. The decode path is held in float32: the same
+   bfloat16 weights, cast to float32 at each use, served fed the bfloat16
+   run's tokens with the decode cache in float32, every row within
+   1e-3*max|ref| of forward in float32 over the prompt and those tokens
+   (its MoE layers routing each token as the served call routed it, by a
+   plain per-expert gather). Controls
+   must miss that limit: the first prompt served with its cache never
+   merged into its slot and with decode steps that leave the cache as
+   they found it, and for phi3.5-moe that forward with every choice kept
+   and with the weights not renormalised. The bfloat16 run's drift against
+   the float32 one is printed, and each prefill's and decode step's
+   dropped MoE choices. qwen2-vl and musicgen also prefill 2048 frontend
+   embeddings (qwen2-vl: a 16 x 16 image, then text, on M-RoPE streams)
+   against forward, then decode 4 steps on embeddings, in float32 held
+   against the float32 forward in the same way. Each prints prefill ms
+   (median of 5), decode ms a step, tokens/s, peak memory, and a traced
+   decode step (and zamba2's prefill); xlstm the device ops of one sLSTM
+   layer traced over 32, 64 and 128 tokens, scaled to its prefill.
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
 at the blocks the sharded convolution and one prefill of the FFT-conv LM
@@ -129,6 +153,8 @@ needs one GPU and exits non-zero, printing no result, without one.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -226,6 +252,34 @@ SERVE_BATCH, SERVE_NEW, SERVE_TOL, NOISE_RATIO = 4, 32, 2e-2, 2.0
 # spectrum product); a decode step launches none
 LM_LAYER_LAUNCHES = {"four_step_fft": 2, "batched_transpose": 2,
                      "complex_multiply": 1, "fftconv_fused": 0}
+# phase 16: the other layer kinds served at full width, bfloat16 compute
+# (src/repro_torch/configs/): each model KIND_REQUESTS prompts of
+# KIND_PROMPT tokens, batch SERVE_BATCH, KIND_NEW new tokens each; phi3.5-moe
+# at full width cut to 8 of its 32 layers (the whole model's 83.7 GB of
+# bf16 weights do not fit the card's 80 GB). The
+# embedding-input models also prefill KIND_PROMPT frame or patch
+# embeddings (qwen2-vl: a MROPE_GRID^2 image, then text, on M-RoPE streams)
+# and decode EMBED_STEPS more. A prefill is held against forward at
+# SERVE_TOL (the same computation). The decode path is held in float32:
+# the same weights served in float32 with a float32 decode cache, fed the
+# bfloat16 run's tokens, against forward in float32 within KIND_F32_TOL of
+# the max logit, float32 arithmetic in another order (its MoE routes each
+# token as the served call did). A bfloat16 cache would round k/v, and
+# decode attention its queries and weights, at every step; float32 noise
+# flips some of those roundings, which depth amplifies to a few 1e-3 of
+# the max logit (PERF.md). The controls (a cache never merged, decode steps that
+# carry no state; for MoE, no capacity or weights not renormalised) must
+# miss it. At this depth random bfloat16 weights drift far from float32
+# (xlstm, zamba2: about half the max logit; tests/test_torch_lm_drift.py
+# holds the port's drift to the reference's), so the drift is printed,
+# not held. The sLSTM layers' device ops are traced over SLSTM_TRACED
+# tokens
+KIND_MODELS = (("xlstm-1.3b", None), ("zamba2-7b", None),
+               ("qwen2-vl-7b", None), ("musicgen-large", None),
+               ("phi3.5-moe-42b-a6.6b", 8))
+KIND_PROMPT, KIND_REQUESTS, KIND_NEW = 2048, 4, 16
+MROPE_GRID, EMBED_STEPS = 16, 4
+KIND_F32_TOL, SLSTM_TRACED = 1e-3, (32, 64, 128)
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -460,12 +514,13 @@ def phase_times(label, planners, x, z, main_shapes, gen) -> dict:
     return out
 
 
-def phase_profile(label, calls, top: int = 10) -> None:
+def phase_profile(label, calls, top: int = 10) -> list:
     """One traced run of each (name, call): device time by kernel (the
     ``top`` longest), and the device's busy share of the call's wall
-    time."""
+    time. Returns (wall ms, busy ms, device ops) of each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    out = []
     for name, run in calls:
         run()
         torch.cuda.synchronize()
@@ -486,6 +541,8 @@ def phase_profile(label, calls, top: int = 10) -> None:
         for e in rows[:top]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
                   f"{e.key[:90]}")
+        out.append((wall_ms, busy_ms, ops))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1744,42 +1801,78 @@ def phase_gloo_ranks() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve(model, cfg, prompts, planner=None, forced=None) -> dict:
-    """Serve ``prompts`` through ServeLoop (batch SERVE_BATCH, SERVE_NEW
-    tokens each, caches of the prompt length + SERVE_NEW) on ``model``,
+def serve(model, cfg, prompts, planner=None, forced=None, new=SERVE_NEW,
+          routing=None, control=None, cache32=False) -> dict:
+    """Serve ``prompts`` through ServeLoop (batch SERVE_BATCH, ``new``
+    tokens each, caches of the prompt length + ``new``) on ``model``,
     keeping every logits row a request takes a token from. ``forced`` (rid
     -> tokens) feeds each request those tokens instead of its own argmax
-    (teacher forcing). Returns the rows and tokens by request, the kernel
-    launches of the drained run alone, the ms of each step that admitted
-    no request, the run's seconds and its peak device memory."""
+    (teacher forcing). ``routing``: the list the MoE layers' routing is
+    logged to (``moe_logged``); each request keeps that of the tokens it
+    fed: its prompt's at its prefill, its own slot's at each decode step.
+    ``control`` breaks the loop on purpose: "unmerged" never merges a
+    prefill's cache into its slot (the slot keeps an empty cache),
+    "frozen" undoes every decode step's writes to the cache (a recurrent
+    state is never carried, a new token's k/v never kept). ``cache32``
+    keeps the decode cache in float32 (``float32_cache``). Returns the
+    rows, routing and tokens by request, the kernel launches of the
+    drained run alone, the ms of each step that admitted no request, the
+    run's seconds and its peak device memory."""
     from repro_torch import kernels
     from repro_torch.launch.serve import Request, ServeLoop
-    rows, decode_ms = {}, []
+    rows, routes, decode_ms = {}, {}, []
+    n_moe = sum(layer.kind == "attn_moe" for layer in model.layers)
 
     class Recorded(ServeLoop):
         def next_token(self, req, logits):
             rows.setdefault(req.rid, []).append(logits.clone())
+            if routing is not None and n_moe:
+                # the prompt's tokens after a prefill, the request's slot
+                # after a decode step
+                lo, hi = ((0, len(req.prompt)) if not req.out else
+                          (self.slots.index(req), self.slots.index(req) + 1))
+                routes.setdefault(req.rid, []).append(routing_rows(
+                    routing[len(routing) - n_moe:], lo, hi))
             if forced is not None:
                 return forced[req.rid][len(req.out)]
             return super().next_token(req, logits)
 
+        def _merge(self, c1, i, true_len):
+            if control == "unmerged":
+                self.cache["len"][i] = true_len
+            else:
+                super()._merge(c1, i, true_len)
+
         def step(self):
             admits = bool(self.queue) and None in self.slots
             t0 = time.perf_counter()
+            if control == "frozen":
+                self._admit()
+                kept = [{k: t.clone() for k, t in layer.items()}
+                        for layer in self.cache["layers"]]
             super().step()
+            if control == "frozen":
+                for layer, old in zip(self.cache["layers"], kept):
+                    for k, t in old.items():
+                        layer[k].copy_(t)
             torch.cuda.synchronize()
             if not admits:
                 decode_ms.append((time.perf_counter() - t0) * 1e3)
 
-    loop = Recorded(cfg, SERVE_BATCH, len(prompts[0]) + SERVE_NEW,
+    loop = Recorded(cfg, SERVE_BATCH, len(prompts[0]) + new,
                     model=model, planner=planner)
+    if cache32:
+        for layer in loop.cache["layers"]:
+            for k, t in layer.items():
+                layer[k] = t.float()
     for rid, prompt in enumerate(prompts):
-        loop.submit(Request(rid, prompt, SERVE_NEW))
+        loop.submit(Request(rid, prompt, new))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    loop.drain()
+    with float32_cache() if cache32 else contextlib.nullcontext():
+        loop.drain()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1788,9 +1881,9 @@ def serve(model, cfg, prompts, planner=None, forced=None) -> dict:
     del loop
     torch.cuda.empty_cache()
     check(sorted(tokens) == list(range(len(prompts))) and all(
-        len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in t)
+        len(t) == new and all(0 <= x < cfg.vocab_size for x in t)
         for t in tokens.values()), f"{cfg.name}: served tokens")
-    return dict(rows=rows, tokens=tokens, launches=launches,
+    return dict(rows=rows, routes=routes, tokens=tokens, launches=launches,
                 decode_ms=decode_ms, seconds=seconds, peak=peak)
 
 
@@ -1837,7 +1930,8 @@ def decode_input(model, length: int, max_len: int):
 def print_serve(label, name, res, prefill, prompt_len) -> None:
     n = sum(len(t) for t in res["tokens"].values())
     print(f"serve {name}: {len(res['tokens'])} requests of {prompt_len} "
-          f"tokens, batch {SERVE_BATCH}, {SERVE_NEW} new each: prefill "
+          f"tokens, batch {SERVE_BATCH}, "
+          f"{len(next(iter(res['tokens'].values())))} new each: prefill "
           + ", ".join(f"{k} {d:.3f} ms (wall {w:.3f})"
                       for k, (d, w) in prefill.items())
           + f" a request (median of 5); decode "
@@ -1866,7 +1960,7 @@ def phase_fftconv_lm(label, olmo, planners) -> dict:
     per_prefill = {k: v * cfg.num_layers for k, v in LM_LAYER_LAUNCHES.items()}
     with torch.no_grad():
         model = LM(cfg, planner=planners["hopper"], generator=torch.Generator(
-            device="cuda").manual_seed(SEED))
+            device="cuda").manual_seed(SEED)).to_compute_dtype()
         res = serve(model, cfg, prompts)
         want = {k: v * LM_REQUESTS for k, v in per_prefill.items()}
         check(res["launches"] == want, f"FFT-conv LM served launches "
@@ -1945,7 +2039,7 @@ def phase_olmo(label, olmo) -> None:
                for _ in range(OLMO_REQUESTS)]
     with torch.no_grad():
         model = LM(olmo, generator=torch.Generator(
-            device="cuda").manual_seed(SEED))
+            device="cuda").manual_seed(SEED)).to_compute_dtype()
         res = serve(model, olmo, prompts)
         check(sum(res["launches"].values()) == 0,
               f"olmo-1b launched {res['launches']}")
@@ -1986,6 +2080,403 @@ def phase_olmo(label, olmo) -> None:
              lambda: model.decode_step(cache, step))], top=15)
     del model, res, cache
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the other layer kinds (phase 16)
+# ---------------------------------------------------------------------------
+
+
+def float32_view(model):
+    """``model`` computing in float32: a shallow copy that holds the very
+    same (bfloat16) parameters, each cast to float32 at its use, so that no
+    second copy of the weights is held. Its logits are those of a float32
+    LM loaded with the bfloat16 weights; ServeLoop serves it as it is."""
+    import copy
+    import dataclasses
+    twin = copy.copy(model)
+    twin.dtype = torch.float32
+    twin.cfg = dataclasses.replace(model.cfg, compute_dtype="float32")
+    return twin
+
+
+@contextlib.contextmanager
+def patched(name, wrap):
+    """``repro_torch.models.blocks.<name>`` (the layers look it up at each
+    call) replaced by ``wrap(original)`` for the block."""
+    from repro_torch.models import blocks
+    saved = getattr(blocks, name)
+    setattr(blocks, name, wrap(saved))
+    try:
+        yield
+    finally:
+        setattr(blocks, name, saved)
+
+
+@contextlib.contextmanager
+def float32_cache():
+    """For the block, a prefill's cache keeps the dtype of its k/v (a
+    float32 model's: float32) instead of bfloat16 (``lm._pad_seq``); a
+    decode step writes its k/v in the cache's dtype and reads them back as
+    they are, so a float32 model's decode path then rounds nothing."""
+    from repro_torch.models import lm
+    saved = lm._pad_seq
+
+    def pad_seq(t, pad):
+        return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])],
+                         1)
+    lm._pad_seq = pad_seq
+    try:
+        yield
+    finally:
+        lm._pad_seq = saved
+
+
+def top_experts(gates, k):
+    """Each row's k largest gates' experts, ties to the lower index."""
+    return torch.sort(gates, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def plain_route(p, cfg, x):
+    """The reference's routing of one MoE call's tokens (x (B, S, d), one
+    group), computed here: (experts (T, k), keep (T, k)), each token's
+    top_k experts of the float32 router softmax and whether each choice
+    finds a slot: the (token, choice) pairs take their experts' slots in
+    token-major order, capacity_factor x T x top_k / experts of them, at
+    least 4, at most T x top_k."""
+    import torch.nn.functional as F
+    xt = x.reshape(-1, x.shape[-1]).float()
+    t, k, e = xt.shape[0], cfg.top_k, cfg.num_experts
+    experts = top_experts(torch.softmax(xt @ p["router"].float(), dim=-1), k)
+    flat = experts.reshape(-1)
+    hot = F.one_hot(flat, e)
+    rank = (hot.cumsum(0) - hot).gather(1, flat[:, None])[:, 0]
+    cap = min(max(int(cfg.capacity_factor * t * k / e), 4), t * k)
+    return experts, (rank < cap).reshape(t, k)
+
+
+def moe_logged(log):
+    """For ``patched("moe_fwd", ...)``: the MoE, which also appends each
+    call's ``plain_route`` to ``log``."""
+    def wrap(moe_fwd):
+        def logged(p, cfg, x, num_groups=1):
+            check(num_groups == 1, "a MoE layer routed in groups")
+            log.append(plain_route(p, cfg, x))
+            return moe_fwd(p, cfg, x, num_groups)
+        return logged
+    return wrap
+
+
+def moe_forced(routes, capacity=True, renormalise=True):
+    """For ``patched("moe_fwd", ...)`` around a forward over one request's
+    tokens: a plain MoE whose l-th call gives each token the experts and
+    the kept choices of ``routes[l]`` ((experts (T', k), keep (T', k)), as
+    the served run routed it; a token past T' its own top_k, every choice
+    kept), weighted by its router softmax renormalised over them, each
+    expert's SwiGLU applied to its tokens by a gather. The controls: every
+    choice kept (``capacity`` False), the weights not renormalised."""
+    import torch.nn.functional as F
+    calls = iter(routes)
+
+    def wrap(_):
+        def forced(p, cfg, x, num_groups=1):
+            experts, keep = next(calls)
+            xt = x.reshape(-1, x.shape[-1])
+            t, dt = xt.shape[0], x.dtype
+            gates = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+            own = top_experts(gates[experts.shape[0]:], cfg.top_k)
+            experts = torch.cat([experts, own])
+            keep = torch.cat([keep, torch.ones_like(own, dtype=torch.bool)])
+            w = gates.gather(1, experts)
+            if renormalise:
+                w = w / w.sum(-1, keepdim=True)
+            if capacity:
+                w = w * keep
+            out = torch.zeros_like(xt)
+            for e in range(cfg.num_experts):
+                tok, choice = (experts == e).nonzero(as_tuple=True)
+                h = xt[tok]
+                y = (F.silu(h @ p["w_gate"][e].to(dt))
+                     * (h @ p["w_up"][e].to(dt))) @ p["w_down"][e].to(dt)
+                out.index_add_(0, tok, y * w[tok, choice, None].to(dt))
+            return out.reshape(x.shape), torch.zeros((), device=x.device)
+        return forced
+    return wrap
+
+
+def routing_rows(calls, lo, hi):
+    """(experts (T, L, k), kept (T, L, k)) of tokens lo..hi-1 in ``calls``,
+    the routing log's entries of one call of the model (one a MoE layer)."""
+    return (torch.stack([topi[lo:hi] for topi, _ in calls], 1),
+            torch.stack([kept[lo:hi] for _, kept in calls], 1))
+
+
+def forward_rows(model, batch, lo, hi):
+    """Rows lo..hi-1 of ``model``'s logits over ``batch``."""
+    rows = model(batch)[0][0, lo:hi]
+    check(torch.isfinite(rows).all().item(), f"{model.cfg.name}: forward "
+          "non-finite")
+    return rows
+
+
+def drops_by_call(log, n_moe) -> list:
+    """Dropped (token, choice) pairs of each call, summed over its MoE
+    layers, and the pairs it routed."""
+    out = []
+    for i in range(0, len(log), n_moe):
+        calls = log[i:i + n_moe]
+        out.append((sum(int((~kept).sum()) for _, kept in calls),
+                    sum(kept.numel() for _, kept in calls)))
+    return out
+
+
+def hold_float32(twin, prompts, tokens) -> dict:
+    """The decode path in float32: ``twin`` (``float32_view``) serves
+    ``prompts`` fed ``tokens`` with its decode cache in float32, and every
+    row it takes a token from is held within KIND_F32_TOL of forward over
+    the prompt and the tokens in float32, whose MoE layers route each
+    token as the served run did (``moe_forced``). The controls must miss
+    that limit:
+    the first prompt served with its cache never merged and with decode
+    steps that leave the cache as they found it (``serve``'s "unmerged"
+    and "frozen"); for MoE, that forward with every choice kept and with
+    the weights not renormalised. Returns the served rows, their errors
+    and the controls' errors."""
+    import numpy as np
+    cfg = twin.cfg
+    n_moe = sum(layer.kind == "attn_moe" for layer in twin.layers)
+    s = len(prompts[0])
+    log = []
+    with patched("moe_fwd", moe_logged(log)):
+        truth = serve(twin, cfg, prompts, forced=tokens, new=KIND_NEW,
+                      routing=log, cache32=True)
+    del log
+    controls = {c: serve(twin, cfg, prompts[:1], forced=tokens, new=KIND_NEW,
+                         control=c, cache32=True)["rows"][0]
+                for c in ("unmerged", "frozen")}
+
+    def reference(rid, **moe):
+        with contextlib.ExitStack() as stack:
+            if n_moe:
+                experts = torch.cat([e for e, _ in truth["routes"][rid]])
+                keep = torch.cat([k for _, k in truth["routes"][rid]])
+                stack.enter_context(patched("moe_fwd", moe_forced(
+                    [(experts[:, i], keep[:, i]) for i in range(n_moe)],
+                    **moe)))
+            seq = as_batch(np.concatenate([prompts[rid], tokens[rid]]))
+            return forward_rows(twin, seq, s - 1, s - 1 + KIND_NEW)
+
+    def errs(ours, ref):
+        return [rel_err(cfg, a, b) for a, b in zip(ours, ref)]
+    held, missed = [], {}
+    for rid in range(len(prompts)):
+        rows = reference(rid)
+        held += errs(truth["rows"][rid], rows)
+        if rid == 0:
+            for c, run in controls.items():
+                missed[c] = max(errs(run, rows))
+            if n_moe:
+                for c, moe in (("every choice kept", dict(capacity=False)),
+                               ("weights not renormalised",
+                                dict(renormalise=False))):
+                    missed[c] = max(errs(truth["rows"][0],
+                                         reference(0, **moe)))
+        del rows
+    check(len(held) == len(prompts) * KIND_NEW
+          and max(held) <= KIND_F32_TOL,
+          f"{cfg.name} served in float32: err/max {max(held)} against the "
+          f"float32 forward over {len(held)} rows, more than {KIND_F32_TOL}")
+    check(min(missed.values()) > KIND_F32_TOL,
+          f"{cfg.name}: a control is within {KIND_F32_TOL} of the float32 "
+          f"forward: {missed}")
+    return dict(rows=truth["rows"], errs=held, missed=missed)
+
+
+def phase_embeds(model, twin, gen) -> str:
+    """A prefill of KIND_PROMPT frontend embeddings (qwen2-vl: a
+    MROPE_GRID^2 image, then text, on M-RoPE streams) against forward over
+    the same embeddings within SERVE_TOL, then EMBED_STEPS decode steps on
+    embeddings: in float32 (``twin``, its cache in float32) held within
+    KIND_F32_TOL of forward over them all in float32 (the new tokens at
+    position len in every stream, as decode gives them), the bfloat16
+    steps' drift against it printed."""
+    from repro_torch.models import mrope_positions, synth_embeddings
+    cfg = model.cfg
+    s, n = KIND_PROMPT, EMBED_STEPS
+    emb = synth_embeddings(cfg, 1, s + n, gen)
+    prompt, whole = {"embeds": emb[:, :s]}, {"embeds": emb}
+    if cfg.rope == "mrope":
+        pos = mrope_positions(1, s, MROPE_GRID)
+        prompt["positions"] = pos
+        tail = torch.arange(s, s + n, dtype=pos.dtype, device=pos.device)
+        whole["positions"] = torch.cat(
+            [pos, tail.expand(3, 1, n)], dim=-1)
+    lg, _ = model.prefill(prompt, s + n)
+    full = model(prompt)[0]
+    err_a = rel_err(cfg, lg[0, 0], full[0, -1])
+    del full
+    check(err_a <= SERVE_TOL, f"{cfg.name} embeds prefill against forward: "
+          f"err/max {err_a} > {SERVE_TOL}")
+    rows = []
+    for m, keep in ((model, contextlib.nullcontext()),
+                    (twin, float32_cache())):
+        with keep:
+            _, cache = m.prefill(prompt, s + n)
+        rows.append([])
+        for i in range(n):
+            lg, cache = m.decode_step(cache,
+                                      {"embeds": emb[:, s + i:][:, :1]})
+            rows[-1].append(lg[0, 0])
+        del cache
+    fwd32 = forward_rows(twin, whole, s, s + n)
+    drift = [rel_err(cfg, a, b) for a, b in zip(rows[0], fwd32)]
+    dec32 = [rel_err(cfg, a, b) for a, b in zip(rows[1], fwd32)]
+    check(max(dec32) <= KIND_F32_TOL, f"{cfg.name} embeds decode in float32: "
+          f"err/max {max(dec32)} against the float32 forward, more than "
+          f"{KIND_F32_TOL}")
+    layout = (f"{MROPE_GRID}x{MROPE_GRID} patches, then text, on M-RoPE "
+              "streams" if cfg.rope == "mrope" else "frames")
+    return (f"embeds ({layout}): prefill against forward err/max "
+            f"{err_a:.3e}; {n} decode steps in float32 against the float32 "
+            f"forward {max(dec32):.3e} (limit {KIND_F32_TOL}), bfloat16 "
+            f"drift {max(drift):.4f}")
+
+
+def xlstm_layers(label, name, model, gen, prefill_ms) -> None:
+    """Where an xlstm prefill's time goes: the device ops of one sLSTM
+    layer, traced over SLSTM_TRACED token counts and scaled to the sLSTM
+    layers of a KIND_PROMPT-token prefill (the ops grow by the same count
+    a token); the untraced wall of one sLSTM and one mLSTM layer over
+    KIND_PROMPT tokens (medians of 3), times their layers."""
+    from repro_torch.models.ssm import mlstm_fwd, slstm_fwd
+    cfg = model.cfg
+    count = {kind: sum(x.kind == kind for x in model.layers)
+             for kind in ("slstm", "mlstm")}
+    first = {kind: next(x for x in model.layers if x.kind == kind)
+             for kind in count}
+    ops = []
+    for n in SLSTM_TRACED:
+        h = torch.randn((1, n, cfg.d_model), generator=gen,
+                        device="cuda").to(model.dtype)
+        (_, _, o), = phase_profile(label, [(
+            f"{name} one sLSTM layer over {n} tokens",
+            lambda: slstm_fwd(first["slstm"].mixer, cfg, h))], top=5)
+        ops.append(o)
+    (n0, n1, n2), (o0, o1, o2) = SLSTM_TRACED, ops
+    per_token = (o2 - o1) / (n2 - n1)
+    linear = per_token == (o1 - o0) / (n1 - n0)
+    total = count["slstm"] * (o1 + per_token * (KIND_PROMPT - n1))
+    h = torch.randn((1, KIND_PROMPT, cfg.d_model), generator=gen,
+                    device="cuda").to(model.dtype)
+    wall = {kind: time_variant(lambda: fwd(first[kind].mixer, cfg, h), 3)
+            for kind, fwd in (("slstm", slstm_fwd), ("mlstm", mlstm_fwd))}
+    print(f"serve {name} sLSTM: {per_token:.0f} device ops a token a layer "
+          f"({ops} traced over {list(SLSTM_TRACED)} tokens, "
+          f"{'' if linear else 'not '}linear), so {total:.0f} for the "
+          f"{count['slstm']} sLSTM layers of a {KIND_PROMPT}-token prefill. "
+          f"One layer over {KIND_PROMPT} tokens, untraced (device ms, wall "
+          + ", ".join(f"{kind} {d:.3f}, {w:.3f}"
+                      for kind, (d, w) in wall.items())
+          + f" ms): the {count['slstm']} sLSTM layers "
+          f"{count['slstm'] * wall['slstm'][1]:.1f} ms and the "
+          f"{count['mlstm']} mLSTM layers "
+          f"{count['mlstm'] * wall['mlstm'][1]:.1f} ms of the prefill's "
+          f"{prefill_ms:.1f} ms [{label}]")
+
+
+def phase_kind(label, name, depth) -> dict:
+    """Serve one model of the other layer kinds (KIND_MODELS): (a) each
+    prefill against forward over its prompt within SERVE_TOL; the decode
+    path in float32 (``hold_float32``); the embedding paths
+    (``phase_embeds``). Prints the bfloat16 run's drift against the
+    float32 one, its times, peak and profiles (xlstm: its layers' device
+    ops and times, ``xlstm_layers``); returns the drained run's kernel
+    launches."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.blocks import moe_capacity
+    cfg = get_config(name)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, KIND_PROMPT).astype(np.int32)
+               for _ in range(KIND_REQUESTS)]
+    max_len = KIND_PROMPT + KIND_NEW
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = LM(cfg, generator=gen).to_compute_dtype()
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        n_moe = sum(layer.kind == "attn_moe" for layer in model.layers)
+        log = []
+        with patched("moe_fwd", moe_logged(log)):
+            res = serve(model, cfg, prompts, new=KIND_NEW)
+        check(sum(res["launches"].values()) == 0,
+              f"{cfg.name} launched {res['launches']}")
+        drops = drops_by_call(log, n_moe) if n_moe else []
+        del log
+        # (a) the same computation as the prefill (a MoE layer's capacity
+        # counts the same KIND_PROMPT tokens)
+        err_a = [rel_err(cfg, res["rows"][rid][0], forward_rows(
+                     model, as_batch(prompt), KIND_PROMPT - 1,
+                     KIND_PROMPT)[0])
+                 for rid, prompt in enumerate(prompts)]
+        check(max(err_a) <= SERVE_TOL, f"{cfg.name} prefill against "
+              f"forward: err/max {max(err_a)} > {SERVE_TOL}")
+        twin = float32_view(model)
+        held = hold_float32(twin, prompts, res["tokens"])
+        drift = [rel_err(cfg, a, b) for rid in res["rows"]
+                 for a, b in zip(res["rows"][rid], held["rows"][rid])]
+        embeds = (phase_embeds(model, twin, gen)
+                  if cfg.frontend is not None else "")
+        kinds = sorted({layer.kind for layer in model.layers})
+        print(f"serve {name} ({len(model.layers)} layers {kinds}, d "
+              f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+              f"{cfg.compute_dtype}, built in {built:.1f} s): (a) prefill "
+              f"against forward err/max {max(err_a):.3e} (tol {SERVE_TOL}); "
+              f"served in float32, {len(held['errs'])} rows against the "
+              f"float32 forward err/max {max(held['errs']):.3e} (median "
+              f"{statistics.median(held['errs']):.3e}; limit "
+              f"{KIND_F32_TOL}); controls, which must miss it: "
+              + ", ".join(f"{c} {e:.3e}" for c, e in held["missed"].items())
+              + f"; bfloat16 drift, the served rows against the float32 "
+              f"served rows, err/max {max(drift):.4f} (median "
+              f"{statistics.median(drift):.4f})"
+              + (f"; {embeds}" if embeds else ""))
+        if n_moe:
+            prefills = [d for d in drops if d[1] > SERVE_BATCH * cfg.top_k
+                        * n_moe]
+            steps = [d for d in drops if d[1] <= SERVE_BATCH * cfg.top_k
+                     * n_moe]
+            print(f"serve {name} MoE drops (dropped of routed (token, "
+                  f"choice) pairs over {n_moe} layers, capacity "
+                  f"{moe_capacity(cfg, KIND_PROMPT)} a prefill, "
+                  f"{moe_capacity(cfg, SERVE_BATCH)} a decode step): "
+                  f"prefills {prefills}; decode steps "
+                  f"{[d for d, _ in steps]} of {steps[0][1]} each")
+        batch = as_batch(prompts[0])
+        prefill = {name: time_variant(lambda: model.prefill(batch, max_len),
+                                      5)}
+        print_serve(label, name, res, prefill, KIND_PROMPT)
+        if "slstm" in kinds:
+            xlstm_layers(label, name, model, gen, prefill[name][0])
+        cache, step = decode_input(model, KIND_PROMPT, max_len)
+        calls = [(f"{name} decode step batch {SERVE_BATCH} at {KIND_PROMPT}",
+                  lambda: model.decode_step(cache, step))]
+        if name == "zamba2-7b":
+            calls.insert(0, (f"{name} prefill {KIND_PROMPT} tokens",
+                             lambda: model.prefill(batch, max_len)))
+        phase_profile(label, calls, top=15)
+        print(f"serve {name}: took {time.perf_counter() - t0:.1f} s")
+    launches = res["launches"]
+    del model, twin, res, held, cache, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2116,10 +2607,20 @@ def main() -> int:
     phase_olmo(label, olmo)
     print(f"LM phase: 15 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 16: the other layer kinds at full width
+    t0 = time.perf_counter()
+    kind_launches = {}
+    for name, depth in KIND_MODELS:
+        for kernel, n in phase_kind(label, name, depth).items():
+            kind_launches[kernel] = kind_launches.get(kernel, 0) + n
+    print(f"LM phase: 16 took {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches in the counted run of every path: the N-D FFT
-    # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving (15)
+    # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving
+    # (15), the other layer kinds served (16: none, checked there)
     paths = {"nd_fft": launches, "mixer": mixer_launches,
-             "fftconv_fused": fused_launches, "lm_serve": lm_launches}
+             "fftconv_fused": fused_launches, "lm_serve": lm_launches,
+             "lm_kinds_serve": kind_launches}
 
     def counts(name):
         by_path = {path: c[name] for path, c in paths.items()}

@@ -1,7 +1,6 @@
 """Assigned-architecture registry: one module per architecture, exact pool
 configs, plus reduced smoke variants and the FFT case-study configs; the
-port's copy of ``repro.configs``. Every config loads; ``models.lm.LM``
-refuses the layer kinds the port does not run yet."""
+port's copy of ``repro.configs``. ``models.lm.LM`` builds every one."""
 
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from .core.plan import Plan, Planner, resolve_device
 from .models.blocks import FFTConvMixer
 from .models.config import ArchConfig
 from .models.lm import LM
+from .models.ssm import SLSTM_STATE
 
 BACKEND_NAMES = {
     "jnp": "torch",
@@ -93,17 +94,22 @@ def lm_from_reference(params: Mapping[str, Any], cfg: ArchConfig,
     """The reference's LM parameters (``repro.models.lm.init_params``' tree,
     as numpy arrays) as an ``LM`` of ``cfg`` on ``device`` (None: the GPU).
     Each segment's leading layer axis is unstacked into the port's layers;
-    a parameter missing on either side or of another shape raises."""
+    the shared block (``params["shared"]``, whose segments are empty)
+    becomes the LM's ``shared``. A parameter missing on either side or of
+    another shape raises."""
     model = LM(cfg, planner=planner, device=device)
     flat: Dict[str, np.ndarray] = {"embed": params["embed"]}
     if "lm_head" in params:
         flat["lm_head"] = params["lm_head"]
     for name, a in params["final_norm"].items():
         flat[f"final_norm.{name}"] = a
+    for part, tree in params.get("shared", {}).items():
+        for name, a in tree.items():
+            flat[f"shared.{part}.{name}"] = a
     i = 0
     for seg, (_, count) in zip(params["segments"], cfg.resolved_segments()):
         for j in range(count):
-            for part, tree in seg["layers"].items():
+            for part, tree in seg.get("layers", {}).items():
                 for name, a in tree.items():
                     flat[f"layers.{i + j}.{part}.{name}"] = np.asarray(a)[j]
         i += count
@@ -122,18 +128,27 @@ def lm_from_reference(params: Mapping[str, Any], cfg: ArchConfig,
     return model
 
 
+CACHE_NAMES = ("k", "v", "v_hist", "conv", "ssd", "mlstm") + SLSTM_STATE
+
+
 def cache_from_reference(cache: Mapping[str, Any],
                          device=None) -> Dict[str, Any]:
     """The reference's decode cache (``prefill``'s or ``init_cache``'s, as
-    numpy arrays: ``len`` and per segment ``k``/``v`` or ``v_hist``
-    stacked over its layers) as the port's, one entry per layer, on
-    ``device`` (None: the GPU)."""
+    numpy arrays: ``len`` and per segment its tensors stacked over the
+    segment's layers: attention ``k``/``v``, FFT-conv ``v_hist``, Mamba2
+    ``conv``/``ssd``, mLSTM ``mlstm``, sLSTM ``slstm`` as a ``(c, n, h,
+    m)`` tuple) as the port's, one entry per layer, the sLSTM tuple as
+    named tensors, on ``device`` (None: the GPU)."""
     dev = resolve_device(device)
     layers = []
     for seg in cache["segments"]:
-        if not seg or set(seg) - {"k", "v", "v_hist"}:
+        seg = dict(seg)
+        if "slstm" in seg:
+            seg.update(zip(SLSTM_STATE, seg.pop("slstm")))
+        if not seg or set(seg) - set(CACHE_NAMES):
             raise ValueError(f"a segment cache with {sorted(seg)}: the port "
-                             "holds attention and FFT-conv caches only")
+                             f"holds {', '.join(CACHE_NAMES)} and the sLSTM "
+                             "tuple")
         count = len(next(iter(seg.values())))
         layers += [{name: _tensor(np.asarray(a)[j]).to(dev)
                     for name, a in seg.items()} for j in range(count)]

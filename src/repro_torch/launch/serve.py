@@ -38,11 +38,15 @@ class Request:
 
 class ServeLoop:
     """Serves ``cfg`` with a decode batch of ``batch`` and caches of
-    ``max_len`` positions. ``model`` is an already built ``LM`` of ``cfg``
-    (it is given ``planner`` when one is passed, and its matmul weights
-    are cast to the compute dtype in place); without one the loop builds
-    it from ``seed`` on ``device`` (None: the GPU) with ``planner``.
-    ``next_token`` picks each request's next token (greedy)."""
+    ``max_len`` positions. ``model`` is an already built ``LM`` of ``cfg``,
+    served as it is (it is given ``planner`` when one is passed); without
+    one the loop builds it from ``seed`` on ``device`` (None: the GPU) with
+    ``planner`` and casts its matmul weights to the compute dtype once.
+    ``next_token`` picks each request's next token (greedy).
+
+    Every slot decodes at each step, an empty one token 0, as in the
+    reference; a MoE layer's capacity counts the whole batch, so a
+    request's tokens can depend on what the other slots hold."""
 
     def __init__(self, cfg, batch: int, max_len: int, seed: int = 0,
                  prompt_bucket: int = 8, device=None,
@@ -58,13 +62,14 @@ class ServeLoop:
         self.prompt_bucket = 1 if recurrent else prompt_bucket
         if model is None:
             dev = resolve_device(device)
+            # the reference casts each matmul weight to compute_dtype at
+            # every use; casting once here gives the same values bit for bit
             model = LM(cfg, planner=planner, device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(seed))
+                       generator=torch.Generator(device=dev).manual_seed(seed)
+                       ).to_compute_dtype()
         elif planner is not None:
             model.planner = planner
-        # the reference casts each matmul weight to compute_dtype at every
-        # use; casting once here gives the same values bit for bit
-        self.model = model.to_compute_dtype()
+        self.model = model
         self.device = model.device
         self.cache = model.init_cache(batch, max_len)
         self.slots: List[Optional[Request]] = [None] * batch
@@ -72,7 +77,10 @@ class ServeLoop:
         self.done: List[Request] = []
 
     def _merge(self, c1, i: int, true_len: int) -> None:
-        """The one-sequence cache ``c1`` into slot ``i`` of the batch's."""
+        """The one-sequence cache ``c1`` into slot ``i`` of the batch's:
+        every layer's entry is a dict of tensors with the batch axis first
+        (attention k/v and FFT-conv history in bf16, recurrent states in
+        float32), each copied into row ``i``."""
         for big, one in zip(self.cache["layers"], c1["layers"]):
             for name, t in one.items():
                 big[name][i] = t[0]

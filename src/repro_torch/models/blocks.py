@@ -1,8 +1,8 @@
 """Transformer building blocks, ported from ``repro.models.blocks``: norms,
-RoPE, GQA attention (flash-style chunked for long prefill), the SwiGLU /
-GELU MLP, and the FFT-convolution mixer (the paper's FFT as a sequence
-mixer) with its one-token decode step and the reference's
-sequence-sharded branch.
+RoPE and M-RoPE, GQA attention (flash-style chunked for long prefill), the
+SwiGLU / GELU MLP, the capacity-based top-k MoE, and the FFT-convolution
+mixer (the paper's FFT as a sequence mixer) with its one-token decode step
+and the reference's sequence-sharded branch.
 
 Each function takes its parameters as a mapping (an ``nn.ParameterDict``
 in the LM) under the reference's names. Attention is plain JAX in the
@@ -13,12 +13,14 @@ reference does and multiplies them in float32, which is exact for the
 products. The out-projections multiply in the compute dtype, which
 accumulates in float32 and rounds once, as the reference's float32 result
 cast back does; its ``reduce_dtype`` only changes the partial sums that
-cross devices and waits for the port of ``parallel/``.
-MoE and M-RoPE wait for a later slice (ROADMAP.md, Queue 1 item 5).
+cross devices and waits for the port of ``parallel/``, and so does
+the MoE's expert parallelism: on one device its dispatch is a scatter
+into (E, capacity, d) buffers and its combine a gather.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -78,7 +80,7 @@ def apply_norm(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -88,6 +90,26 @@ def _rope_angles(positions: torch.Tensor, hd: int,
     inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                         device=positions.device) / hd))
     ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _mrope_angles(positions3: torch.Tensor, hd: int,
+                  sections: Tuple[int, ...],
+                  theta: float = 1e4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (qwen2-vl): positions3 (3, B, S) -> cos/sin (B, S, hd//2).
+
+    ``sections`` give the number of frequency slots (out of hd//2) driven
+    by the temporal / height / width position streams respectively.
+    """
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover the "
+                         f"{hd // 2} frequencies of a head of {hd}")
+    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                        device=positions3.device) / hd))
+    ang = positions3[..., None].float() * inv                   # (3,B,S,hd/2)
+    sel = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                       device=positions3.device)
+    ang = ang.gather(0, sel.expand((1,) + ang.shape[1:]))[0]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -104,8 +126,9 @@ def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
     if cfg.rope == "none":
         return None
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 5)")
+        if positions.dim() == 2:                        # text-only: t=h=w
+            positions = positions[None].expand((3,) + positions.shape)
+        return _mrope_angles(positions, cfg.hd, cfg.mrope_sections)
     return _rope_angles(positions, cfg.hd)
 
 
@@ -252,6 +275,106 @@ def mlp_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
     return up @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, capacity dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {"router": ParamMeta((d, e), scale=0.02 / math.sqrt(d)),
+            "w_up": ParamMeta((e, d, f)),
+            "w_gate": ParamMeta((e, d, f)),
+            "w_down": ParamMeta((e, f, d))}
+
+
+@contextlib.contextmanager
+def _full_float32_matmul():
+    """Float32 products in float32 on the card (TF32 off) for the block,
+    whatever the process's setting: the router's top-k must not depend on
+    it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots an expert has for ``tokens`` tokens of one group: capacity
+    factor x tokens x top_k / experts, at least 4, at most tokens x top_k."""
+    k = cfg.top_k
+    cap = max(int(cfg.capacity_factor * tokens * k / cfg.num_experts), 4)
+    return min(cap, tokens * k)
+
+
+def moe_route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
+    """The routing of each group's tokens, xt (G, Tg, d): (gates (G, Tg, E)
+    of the float32 router softmax, weights (G, Tg, k) of the top_k experts
+    renormalised, experts (G, Tg, k) with ties to the lower index as
+    ``lax.top_k``, slot (G, Tg*k) of each (token, choice) in its expert's
+    buffer in token-major order, keep (G, Tg*k): whether that slot is
+    within the expert's capacity, ``moe_capacity``)."""
+    g, tg, _ = xt.shape
+    e, k = cfg.num_experts, cfg.top_k
+    with _full_float32_matmul():
+        logits = xt.float() @ p["router"].float()
+    gates = torch.softmax(logits, dim=-1)                       # (G, Tg, E)
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]                   # (G, Tg, K)
+    topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+    flat = F.one_hot(topi.reshape(g, tg * k), e)                # (G, Tg*K, E)
+    pos = ((flat.cumsum(1) - flat) * flat).sum(-1)              # (G, Tg*K)
+    return gates, topv, topi, pos, pos < moe_capacity(cfg, tg)
+
+
+def moe_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, num_groups: int = 1
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out, float32 aux loss): the reference's GShard-style
+    grouped dispatch on one device.
+
+    The B*S tokens split into ``num_groups`` groups (shrunk to a divisor)
+    and are routed by ``moe_route``: a choice past its expert's capacity
+    is dropped, so the output of a token depends on the tokens before it
+    in its group.
+    """
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    t = b * s
+    g = num_groups
+    while t % g:
+        g -= 1
+    tg = t // g
+    cap = moe_capacity(cfg, tg)
+
+    xt = x.reshape(g, tg, d)
+    gates, topv, topi, pos, keep = moe_route(p, cfg, xt)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    me = gates.mean(1)                                          # (G, E)
+    ce = F.one_hot(topi[..., 0], e).float().mean(1)
+    aux = e * (me * ce).sum(-1).mean()
+
+    # dispatch: a dropped choice goes to a spare slot past the capacity
+    eid = topi.reshape(g, tg * k)
+    grp = torch.arange(g, device=x.device)[:, None]
+    buf = x.new_zeros((g, e, cap + 1, d))
+    buf[grp, eid, torch.where(keep, pos, cap)] = \
+        xt.repeat_interleave(k, dim=1)
+    # expert-major: one batched product an expert over its G x C slots
+    ebuf = buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d)
+    dt = x.dtype
+    h = ebuf @ p["w_up"].to(dt)
+    h = F.silu(ebuf @ p["w_gate"].to(dt)) * h
+    eout = (h @ p["w_down"].to(dt)).reshape(e, g, cap, d).transpose(0, 1)
+
+    # combine: each kept choice's row, weighted, summed over the choices
+    got = eout[grp, eid, torch.where(keep, pos, 0)] * keep[..., None].to(dt)
+    got = got.reshape(g, tg, k, d) * topv[..., None].to(dt)
+    return got.sum(2).reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -254,6 +254,39 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda):
             2e-4 * plain.abs().max().item()
 
 
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_1_3b",
+                                  "phi35_moe_42b", "qwen2_vl_7b"])
+def test_lm_kinds_on_the_card_match_the_cpu(cuda, arch):
+    # the other layer kinds at their smoke widths in float32 on the same
+    # weights: no kernel of the port launches, and the card's prefill and
+    # decode logits are the CPU's within 1e-4 of max|cpu| (float32 in
+    # another order)
+    cfg = get_smoke_config(arch)
+    model = LM(cfg, generator=torch.Generator(device=cuda).manual_seed(0))
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    kernels.reset_launch_counts()
+    lg, cache = model.prefill({"tokens": toks[:, :36].to(cuda)}, 40)
+    want, want_cache = cpu.prefill({"tokens": toks[:, :36]}, 40)
+    steps = [(lg, want)]
+    for i in range(36, 40):
+        lg, cache = model.decode_step(cache, {"tokens": toks[:, i:i + 1]
+                                              .to(cuda)})
+        want, want_cache = cpu.decode_step(want_cache,
+                                           {"tokens": toks[:, i:i + 1]})
+        steps.append((lg, want))
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 0
+    v = cfg.vocab_size
+    for ours, plain in steps:
+        assert ours.device.type == "cuda"
+        ours, plain = ours[..., :v].cpu(), plain[..., :v]
+        assert (ours - plain).abs().max().item() <= \
+            1e-4 * plain.abs().max().item()
+
+
 # kernel launches of one call of each variant: the column pass is the
 # four-step kernel's; the whole-array moves are the transpose kernel's
 # (future_naive and future_opt scatter their rows with torch's copy, agas

@@ -31,6 +31,8 @@ def test_import_loads_neither_jax_nor_the_reference():
                                     "repro_torch.core.api",
                                     "repro_torch.core.fftconv",
                                     "repro_torch.models.blocks",
+                                    "repro_torch.models.ssm",
+                                    "repro_torch.models.frontend",
                                     "repro_torch.optim.compress",
                                     "repro_torch.models.lm",
                                     "repro_torch.launch.serve",
@@ -56,7 +58,8 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
               ROOT / "examples" / "quickstart_torch.py",
               ROOT / "scripts" / "dist_times.py"]
     assert {"comm.py", "dfft.py", "api.py", "fftconv.py", "compress.py",
-            "lm.py", "serve.py", "olmo_1b.py"} <= {f.name for f in files}
+            "lm.py", "serve.py", "olmo_1b.py", "ssm.py",
+            "frontend.py"} <= {f.name for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())

@@ -35,8 +35,6 @@ F32_TOL, BF16_TOL, CACHE_TOL = 1e-4, 2e-2, 2.0 ** -8
 RNG = np.random.default_rng(17)
 
 DENSE = ("olmo_1b", "granite_8b", "granite_3_2b", "command_r_plus_104b")
-UNPORTED = ("phi35_moe_42b", "dbrx_132b", "xlstm_1_3b", "zamba2_7b",
-            "qwen2_vl_7b", "musicgen_large")
 # (name, smoke arch, changes): the dense smoke configs, the FFT-conv LM at
 # the olmo smoke width, a hybrid, absolute positions, and bfloat16 compute
 CASES = [(a, a, {}) for a in DENSE] + [
@@ -92,11 +90,20 @@ def test_configs_are_the_references(arch):
         assert pconfigs.get_config(alias) == pconfigs.get_config(arch)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_configs_load_and_refuse_to_build(arch):
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_every_smoke_config_builds(arch):
     cfg = pconfigs.get_smoke_config(arch)
     assert pconfigs.all_configs()[arch] == pconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
+    model = LM(cfg, device="cpu")
+    assert len(model.layers) == cfg.total_layers()
+    assert [layer.kind for layer in model.layers] == [
+        kind for kind, count in cfg.resolved_segments() for _ in range(count)]
+
+
+def test_an_unknown_layer_kind_raises():
+    cfg = dataclasses.replace(pconfigs.get_smoke_config("olmo_1b"),
+                              segments=(("attn_mlp", 1), ("rwkv", 1)))
+    with pytest.raises(ValueError, match="unknown block kind 'rwkv'"):
         LM(cfg, device="cpu")
 
 
@@ -167,8 +174,11 @@ def test_rope_matches_reference():
            rb.apply_rope(jnp.asarray(x), cos_r, sin_r), F32_TOL)
     assert pb.rope_tables(dataclasses.replace(pc, rope="none"),
                           _t(positions)) is None
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        pb.rope_tables(dataclasses.replace(pc, rope="mrope"), _t(positions))
+    # M-RoPE of text-only positions drives its three streams alike: RoPE
+    mrope = pb.rope_tables(dataclasses.replace(
+        pc, rope="mrope", mrope_sections=(pc.hd // 2 - 2, 1, 1)),
+        _t(positions))
+    assert torch.equal(mrope[0], cos_p) and torch.equal(mrope[1], sin_p)
 
 
 @pytest.mark.parametrize("sk,block_kv,causal,q_offset,dtype", [
@@ -413,6 +423,35 @@ def test_to_compute_dtype_is_the_per_use_cast_bit_for_bit(runs):
     assert dtypes["embed"] == dtypes["layers.1.mix.w_in"] == torch.bfloat16
     assert dtypes["layers.1.mix.filt"] == torch.float32
     assert torch.equal(before, after)
+    # every other layer kind in one bfloat16 stack: the weights used in
+    # float32 (norms, router, the recurrent mixers' gates, decays, skip
+    # and convolution) stay, and the logits do not move
+    cfg = dataclasses.replace(
+        pconfigs.get_smoke_config("zamba2_7b"), num_experts=4, top_k=2,
+        compute_dtype="bfloat16", segments=(
+            ("mamba2", 1), ("shared_attn", 1), ("mlstm", 1), ("slstm", 1),
+            ("attn_moe", 1)))
+    model = LM(cfg, device="cpu")
+    with torch.no_grad():
+        before, aux_before = model(toks)
+        model.to_compute_dtype()
+        after, aux_after = model(toks)
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    for name in ("layers.0.ln.scale", "layers.0.mixer.conv_w",
+                 "layers.0.mixer.a_log", "layers.0.mixer.dt_bias",
+                 "layers.0.mixer.d_skip", "layers.0.mixer.norm",
+                 "layers.2.mixer.wi", "layers.2.mixer.wf",
+                 "layers.2.mixer.bi", "layers.2.mixer.bf",
+                 "layers.2.mixer.norm", "layers.3.mixer.w_gates",
+                 "layers.3.mixer.r_gates", "layers.3.mixer.b_gates",
+                 "layers.4.moe.router", "shared.ln1.scale"):
+        assert dtypes[name] == torch.float32, name
+    for name in ("layers.0.mixer.in_proj", "layers.0.mixer.out_proj",
+                 "layers.2.mixer.wq", "layers.2.mixer.w_down",
+                 "layers.3.mixer.w_out", "layers.4.moe.w_up",
+                 "shared.attn.wq", "shared.mlp.w_down"):
+        assert dtypes[name] == torch.bfloat16, name
+    assert torch.equal(before, after) and torch.equal(aux_before, aux_after)
 
 
 def test_conversions_raise_on_a_mismatch(runs):
@@ -424,7 +463,7 @@ def test_conversions_raise_on_a_mismatch(runs):
     with pytest.raises(ValueError, match="lack"):
         lm_from_reference(r["params"], dataclasses.replace(
             r["pc"], tie_embeddings=False), device="cpu")
-    with pytest.raises(ValueError, match="attention and FFT-conv"):
+    with pytest.raises(ValueError, match="a segment cache with"):
         cache_from_reference({"len": np.zeros(2, np.int32),
                               "segments": [{"ssm": np.zeros((1, 2))}]},
                              device="cpu")
