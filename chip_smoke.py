@@ -137,7 +137,25 @@ run from the root of a checkout. Phases, each of which raises on failure:
    against the float32 forward in the same way. Each prints prefill ms
    (median of 5), decode ms a step, tokens/s, peak memory, and a traced
    decode step (and zamba2's prefill); xlstm the device ops of one sLSTM
-   layer traced over 32, 64 and 128 tokens, scaled to its prefill.
+   layer traced over 32, 64 and 128 tokens, scaled to its prefill;
+17. train at olmo-1b's width: fft_conv's gradient on (2, 8192, 2048)
+   float32 through the hopper planner (forward 2 / 2 / 1 four-step /
+   transpose / complex-multiply launches, backward 1 / 2 / 2) against the
+   autograd of a float64 torch.fft rendering within 2e-4*max|ref|, with
+   two controls that must miss (grad_u against K instead of conj K, grad_k
+   from the first batch row only); one float32 training step of the
+   FFT-conv LM (1 x 8192 tokens, TF32 off) whose loss and every gradient
+   are held per tensor within TRAIN_STEP_TOL of the same step with float64
+   convolutions, and whose control (the convolution's output detached)
+   must miss; then the Trainer (bfloat16 compute, float32 parameters,
+   remat, AdamW warmup 1) on the FFT-conv LM under hopper (2 x 8192 a
+   step) and on olmo-1b as published (4 x 2048), 6 steps each: finite
+   losses, every parameter changed at every step, the launches of every
+   step exact (80 / 96 / 64 / 0 and none), the checkpoint of step 3 (the
+   only one written: TRAIN_CKPT_STEP) restored bit for bit, a run resumed
+   from it within RESUME_TOL of the first run's losses; printing the
+   losses, step ms, tokens/s, the peak beside its reckoning and a traced
+   step.
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
 at the blocks the sharded convolution and one prefill of the FFT-conv LM
@@ -154,11 +172,14 @@ needs one GPU and exits non-zero, printing no result, without one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -280,6 +301,31 @@ KIND_MODELS = (("xlstm-1.3b", None), ("zamba2-7b", None),
 KIND_PROMPT, KIND_REQUESTS, KIND_NEW = 2048, 4, 16
 MROPE_GRID, EMBED_STEPS = 16, 4
 KIND_F32_TOL, SLSTM_TRACED = 1e-3, (32, 64, 128)
+# phase 17: training at olmo-1b's width (bfloat16 compute, float32
+# parameters, remat, AdamW with warmup 1): the FFT-conv LM on TRAIN_B x
+# TRAIN_S tokens a step (nf = 16384, factors (128, 128)), olmo-1b as
+# published on OLMO_TRAIN_B x OLMO_TRAIN_S, TRAIN_STEPS steps each, a
+# checkpoint after step TRAIN_CKPT_STEP. fft_conv's gradient is held at
+# the port's standing limit, TRAIN_CONV_TOL of max|ref|. One float32 step
+# of the FFT-conv LM (1 x TRAIN_S) is held per tensor within TRAIN_STEP_TOL
+# of the same step with float64 convolutions: scripts/train_step_noise.py
+# measures that comparison on the CPU at smoke width and full depth
+# (PERF.md). A run resumed from the checkpoint reaches the first run's
+# losses within RESUME_TOL of them: not bit for bit, for kernels that
+# accumulate with atomics may run there. A checkpoint of either model is
+# 13-14 GB (float32 parameters and AdamW moments), and the script keeps
+# its disk writes under 45 GiB, so each run writes only the checkpoint
+# under test, that of step TRAIN_CKPT_STEP: the save at the end of a run
+# and the resumed run's are skipped (the CPU tests hold them)
+TRAIN_B, TRAIN_S, OLMO_TRAIN_B, OLMO_TRAIN_S = 2, 8192, 4, 2048
+TRAIN_STEPS, TRAIN_CKPT_STEP = 6, 3
+TRAIN_CONV_TOL, TRAIN_STEP_TOL, RESUME_TOL = 2e-4, 1e-3, 1e-3
+# kernel launches of one FFT-conv layer in a training step with remat:
+# fft_conv's forward twice (the recompute), 2 / 2 / 1 each, and its
+# backward 1 / 2 / 2 (the output gradient's transform, its move in and
+# grad_u's move out, G conj(K) and conj(U) G)
+TRAIN_LAYER_LAUNCHES = {"four_step_fft": 5, "batched_transpose": 6,
+                        "complex_multiply": 4, "fftconv_fused": 0}
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -751,6 +797,56 @@ def phase_lm_kernels(gen, factors, errs) -> None:
           f"{[crop for _, crop in moves]} (bfloat16, float32 views) and "
           f"complex_multiply at {four[0]} x {four[1]} (err {err:.3e}, limit "
           "1e-5)")
+
+
+def phase_train_kernels(gen, factors, errs) -> None:
+    """The four-step, transpose and complex-multiply kernels against their
+    plain versions at the blocks a training step of the FFT-conv LM hands
+    them (phase 17), added to ``errs``' entries for them: the bfloat16
+    runs on TRAIN_B x TRAIN_S tokens and the float32 step on 1 x TRAIN_S.
+    fft_conv's backward adds the output gradient's transform (B, D, nf),
+    the move of that gradient, a contiguous (B, L, D) in the compute dtype,
+    and the same-shape product of G with conj(U) (imaginary part negated)
+    to the forward's blocks."""
+    nf = factors[0] * factors[1]
+    cmul = 0.0
+    for batch, dtype in ((TRAIN_B, torch.bfloat16), (1, torch.float32)):
+        four, moves = conv_blocks(nf, batch, TRAIN_S)
+        for shape in four:
+            x = (randn(shape, gen), randn(shape, gen))
+            err, scale = four_step_error(x, factors, permuted=True)
+            check(err <= 1e-4 * scale, f"four_step_fft {shape} {factors} "
+                  f"permuted (training): err {err} > 1e-4 * {scale}")
+            errs["four_step_fft"][f"training {shape} permuted"] = err
+            errs["four_step_worst_rel"] = max(errs["four_step_worst_rel"],
+                                              err / scale)
+            del x
+        # v in the compute dtype, the cropped output and grad_u float32,
+        # the output gradient contiguous in the compute dtype
+        for (full, crop), dt in zip(moves, (dtype, torch.float32)):
+            x = randn(full, gen, dt)[tuple(slice(0, c) for c in crop)]
+            errs["batched_transpose"][f"training {crop} {dt} view of "
+                                      f"{full}"] = transpose_error(x)
+            del x
+        g = randn((batch, TRAIN_S, MIXER_D), gen, dtype)
+        errs["batched_transpose"][f"training {tuple(g.shape)} {dtype} "
+                                  "output gradient"] = transpose_error(g)
+        del g
+        gf = tuple(randn(four[0], gen) for _ in "ri")
+        for b in ((randn(four[1], gen), -randn(four[1], gen)),    # conj K
+                  (randn(four[0], gen), -randn(four[0], gen))):   # conj U
+            err = cmul_error(gf, b)
+            check(err <= 1e-5, f"complex_multiply {four[0]} x "
+                  f"{tuple(b[0].shape)} (training): err {err} > 1e-5")
+            cmul = max(cmul, err)
+            del b
+        del gf
+    errs["complex_multiply"] = max(errs["complex_multiply"], cmul)
+    print(f"checked four_step_fft permuted, batched_transpose (exact) and "
+          f"complex_multiply (worst err {cmul:.3e}, limit 1e-5) at the "
+          f"training blocks of {TRAIN_B} x {TRAIN_S} (bfloat16) and 1 x "
+          f"{TRAIN_S} (float32) tokens, the backward's output gradient "
+          "moves and same-shape conj(U) G products included")
 
 
 def mixer_reference(mixer, x) -> torch.Tensor:
@@ -2479,6 +2575,307 @@ def phase_kind(label, name, depth) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training (phase 17)
+# ---------------------------------------------------------------------------
+
+
+def conv64(orig):
+    """A stand-in for ``fft_conv``: the same causal convolution by float64
+    torch.fft (``causal_conv``), differentiable, cast to the input's
+    dtype."""
+    return lambda v, f, **kw: causal_conv(v.double(), f.double()).to(v.dtype)
+
+
+def conv_detached(orig):
+    """``fft_conv`` with its output cut from the graph (a control)."""
+    return lambda v, f, **kw: orig(v, f, **kw).detach()
+
+
+def step_grads(model, batch) -> tuple:
+    """(loss, every parameter's gradient by name) of one ``loss_fn`` step
+    on ``model``, whose gradients are cleared after."""
+    from repro_torch.models import loss_fn
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def step_errors(model, batch) -> dict:
+    """One float32 training step of ``model`` held against the same weights
+    with every layer's ``fft_conv`` rendered in float64 by torch.fft, and
+    the same step with the convolution's output detached (a control):
+    {"loss", "grads" (err/max of each gradient, by name), "control"
+    (likewise)}, each error against the float64 rendering's."""
+    with patched("fft_conv", conv64):
+        loss64, want = step_grads(model, batch)
+    loss, got = step_grads(model, batch)
+
+    def errs(grads):
+        return {n: ((grads[n] - w).abs().max()
+                    / w.abs().max().clamp(min=1e-30)).item()
+                for n, w in want.items()}
+    out = {"loss": abs(loss.item() - loss64.item()) / abs(loss64.item()),
+           "grads": errs(got)}
+    del got
+    with patched("fft_conv", conv_detached):
+        _, ctrl = step_grads(model, batch)
+    out["control"] = errs(ctrl)
+    return out
+
+
+def train_batch(cfg, batch: int, seq: int, device) -> dict:
+    """SyntheticDataset's step-0 training batch of ``batch`` x ``seq`` token
+    ids and labels, as int64 tensors on ``device``."""
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models.config import ShapeConfig
+    data = SyntheticDataset(cfg, ShapeConfig("train", seq, batch, "train"),
+                            seed=SEED)
+    out = data.batch_at(0)
+    return {k: torch.from_numpy(out[k]).long().to(device)
+            for k in ("tokens", "labels")}
+
+
+def phase_conv_grad(label, planner, gen) -> None:
+    """fft_conv's gradient at the FFT-conv LM's training shape through the
+    hopper planner, against the autograd of a float64 torch.fft rendering;
+    two controls (grad_u against K instead of conj K, grad_k from the first
+    batch row only) must miss the limit."""
+    from repro_torch.core import fftconv as fc
+    from repro_torch.kernels.transpose import transpose
+    from repro_torch.kernels.twiddle import complex_multiply
+    u = randn((TRAIN_B, TRAIN_S, MIXER_D), gen).requires_grad_()
+    k = fc.materialize_filter(0.2 * randn((MIXER_D, MIXER_RANK), gen),
+                              TRAIN_S).requires_grad_()
+    g = randn((TRAIN_B, TRAIN_S, MIXER_D), gen)
+    y, fwd, _ = counted(lambda: fc.fft_conv(u, k, planner=planner))
+    _, back, seconds = counted(lambda: y.backward(g))
+    check(fwd == {"four_step_fft": 2, "batched_transpose": 2,
+                  "complex_multiply": 1, "fftconv_fused": 0}
+          and back == {"four_step_fft": 1, "batched_transpose": 2,
+                       "complex_multiply": 2, "fftconv_fused": 0},
+          f"fft_conv launches: forward {fwd}, backward {back}")
+    u64 = u.detach().double().requires_grad_()
+    k64 = k.detach().double().requires_grad_()
+    causal_conv(u64, k64).backward(g.double())
+    want_u, want_k = u64.grad, k64.grad
+    del u64, k64
+    tol_u = TRAIN_CONV_TOL * want_u.abs().max().item()
+    tol_k = TRAIN_CONV_TOL * want_k.abs().max().item()
+    err_u = (u.grad.double() - want_u).abs().max().item()
+    err_k = (k.grad.double() - want_k).abs().max().item()
+    with torch.no_grad():
+        plan = planner.plan(fc.next_fft_len(2 * TRAIN_S), "c2c",
+                            permuted=True)
+        gf = fc._spectrum(plan, transpose(g))
+        kf = fc._spectrum(plan, k)
+        ctrl_u = transpose(fc._real_crop(plan, complex_multiply(gf, kf),
+                                         TRAIN_S))
+        miss_u = (ctrl_u.double() - want_u).abs().max().item()
+        del ctrl_u, kf
+        uf = fc._spectrum(plan, transpose(u[:1]))
+        ctrl_k = fc._real_crop(plan, complex_multiply(
+            (gf[0][:1], gf[1][:1]), fc._conj(uf)), TRAIN_S)[0]
+        miss_k = (ctrl_k.double() - want_k).abs().max().item()
+        del ctrl_k, uf, gf
+    check(err_u <= tol_u and err_k <= tol_k,
+          f"fft_conv gradient: grad_u err {err_u} (tol {tol_u}), grad_k "
+          f"err {err_k} (tol {tol_k})")
+    check(miss_u > tol_u and miss_k > tol_k,
+          f"fft_conv gradient controls within the limit: grad_u against K "
+          f"{miss_u} (tol {tol_u}), grad_k of row 0 {miss_k} (tol {tol_k})")
+    print(f"train fft_conv gradient {tuple(u.shape)} x {tuple(k.shape)} "
+          f"hopper: grad_u err {err_u:.4e} (tol {tol_u:.4e}), grad_k err "
+          f"{err_k:.4e} (tol {tol_k:.4e}), against float64 torch.fft; "
+          f"controls, which must miss: grad_u against K instead of conj K "
+          f"{miss_u:.4e}, grad_k of the first batch row only {miss_k:.4e}; "
+          f"launches forward {fwd}, backward {back}; backward "
+          f"{seconds * 1e3:.1f} ms incl. first call [{label}]")
+    del u, k, g, y, want_u, want_k
+    torch.cuda.empty_cache()
+
+
+def phase_train_step32(label, cfg, planner) -> None:
+    """One float32 training step of the FFT-conv LM at full width, TRAIN_S
+    tokens: loss and every gradient within TRAIN_STEP_TOL of the same step
+    with float64 convolutions (``step_errors``); its control must miss.
+    The caller turns TF32 off (``main`` does, for the whole run)."""
+    from repro_torch.models import LM
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t0 = time.perf_counter()
+    model = LM(cfg32, planner=planner, generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    errs = step_errors(model, train_batch(cfg32, 1, TRAIN_S, model.device))
+    worst = max(errs["grads"], key=errs["grads"].get)
+    missed = max(errs["control"].values())
+    check(errs["loss"] <= TRAIN_STEP_TOL
+          and errs["grads"][worst] <= TRAIN_STEP_TOL,
+          f"float32 step: loss err {errs['loss']}, {worst} gradient err "
+          f"{errs['grads'][worst]} > {TRAIN_STEP_TOL}")
+    check(missed > TRAIN_STEP_TOL, f"float32 step control (convolution "
+          f"detached) within the limit: {missed}")
+    print(f"train FFT-conv LM float32 step, 1 x {TRAIN_S} tokens, TF32 off: "
+          f"loss err/|ref| {errs['loss']:.3e}, worst gradient err/max "
+          f"{errs['grads'][worst]:.3e} ({worst}; median "
+          f"{statistics.median(errs['grads'].values()):.3e} over "
+          f"{len(errs['grads'])} tensors), limit {TRAIN_STEP_TOL}, against "
+          f"float64 convolutions; control (convolution detached) "
+          f"{missed:.3e}; {time.perf_counter() - t0:.1f} s [{label}]")
+    del model, errs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def memory_reckoning(cfg, n_params: int, batch: int, seq: int) -> tuple:
+    """(GB reckoned, its terms): float32 parameters, gradients and AdamW
+    moments; the bfloat16 logits and the loss's three float32 (B, S, V)
+    temporaries; for an FFT-conv layer the spectra one layer saves (U and
+    K, float32 pairs)."""
+    from repro_torch.core.fftconv import next_fft_len
+    from repro_torch.models.lm import padded_vocab
+    terms = {"params": 4 * n_params, "grads": 4 * n_params,
+             "moments": 8 * n_params,
+             "logits": 2 * batch * seq * padded_vocab(cfg),
+             "loss temporaries": 12 * batch * seq * padded_vocab(cfg)}
+    if any(k == "fftconv_mlp" for k, _ in cfg.resolved_segments()):
+        nf = next_fft_len(2 * seq)
+        terms["layer spectra"] = 8 * (batch + 1) * cfg.d_model * nf
+    return sum(terms.values()) / 1e9, {k: v / 1e9 for k, v in terms.items()}
+
+
+def phase_training(label, name, cfg, planner, batch: int, seq: int,
+                   per_step: dict, ckpt_root) -> dict:
+    """Train ``cfg`` (bfloat16 compute, float32 parameters, remat) through
+    the Trainer for TRAIN_STEPS steps of ``batch`` x ``seq`` with AdamW
+    (warmup 1). Holds: finite losses, every parameter changed at every
+    step, the kernel launches of every step equal to ``per_step``, the
+    checkpoint of step TRAIN_CKPT_STEP restored bit for bit, a run
+    resumed from it within RESUME_TOL of the first run's losses. Prints
+    the losses, the median step ms of steps 2-6, tokens/s, the peak
+    against the reckoning, and a traced step. Returns the run's
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.models import LM
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    shape = ShapeConfig("train", seq, batch, "train")
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    ckpt_dir = str(ckpt_root / name)
+    t0 = time.perf_counter()
+    record = dict(ms=[], launches=[], unchanged=[], restored=None)
+
+    class Recorded(Trainer):
+        def train_step(self, model, opt_state, batch_):
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            out = super().train_step(model, opt_state, batch_)
+            torch.cuda.synchronize()
+            record["ms"].append((time.perf_counter() - t1) * 1e3)
+            record["launches"].append(kernels.launch_counts())
+            record["unchanged"].append(
+                [n for n, p in model.named_parameters()
+                 if torch.equal(p, before[n])])
+            return out
+
+        def save(self, step, model, opt_state):
+            # the checkpoint under test only (TRAIN_CKPT_STEP)
+            if step != TRAIN_CKPT_STEP:
+                return
+            super().save(step, model, opt_state)
+            self.ckpt.wait()
+            t1 = time.perf_counter()
+            live = {"params": dict(model.named_parameters()),
+                    "opt": opt_state}
+            back, extra = self.ckpt.restore(step, live, device="cpu")
+            record["restored"] = (extra == {"data_step": step} and all(
+                torch.equal(back["params"][n].to(p.device), p)
+                for n, p in live["params"].items()) and all(
+                torch.equal(back["opt"][m][n].to(t.device), t)
+                for m in ("mu", "nu") for n, t in opt_state[m].items())
+                and torch.equal(back["opt"]["step"].to(
+                    opt_state["step"].device), opt_state["step"]))
+            record["save_s"] = self.ckpt.save_seconds
+            record["restore_s"] = time.perf_counter() - t1
+            del back
+
+    class Resumed(Trainer):
+        def save(self, step, model, opt_state):
+            pass                        # see TRAIN_CKPT_STEP
+
+    def trainer(cls):
+        model = LM(cfg, planner=planner, generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        return cls(cfg, shape, None, TrainerConfig(
+            ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_STEP, keep_n=2),
+            ocfg, planner=planner, model=model)
+
+    tr = trainer(Recorded)
+    n_params = sum(p.numel() for p in tr._model.parameters())
+    model, opt_state, hist = tr.run(TRAIN_STEPS)
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"{name}: losses {losses}")
+    check(not any(record["unchanged"]), f"{name}: parameters unchanged by "
+          f"a step: {[u[:3] for u in record['unchanged']]}")
+    check(all(c == per_step for c in record["launches"]),
+          f"{name}: launches a step {record['launches']}, expected "
+          f"{per_step}")
+    check(record["restored"] is True, f"{name}: the step "
+          f"{TRAIN_CKPT_STEP} checkpoint did not restore bit for bit")
+    torch.cuda.reset_peak_memory_stats()
+    step_batch = tr.batch_at(TRAIN_STEPS)
+    # the Trainer's own step, without Recorded's checks around it
+    wall, busy, ops = phase_profile(label, [(
+        f"{name} training step {batch} x {seq}",
+        lambda: Trainer.train_step(tr, model, opt_state, step_batch))],
+        top=15)[0]
+    peak = torch.cuda.max_memory_allocated()
+    reckoned, terms = memory_reckoning(cfg, n_params, batch, seq)
+    del model, opt_state, tr, step_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # resume from the step TRAIN_CKPT_STEP checkpoint
+    resumed = trainer(Resumed)
+    _, _, hist2 = resumed.run(TRAIN_STEPS)
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = [h["loss"] for h in hist2]
+    drift = max(abs(a - b) / abs(b)
+                for a, b in zip(again, losses[TRAIN_CKPT_STEP:]))
+    check(len(again) == TRAIN_STEPS - TRAIN_CKPT_STEP
+          and drift <= RESUME_TOL, f"{name}: resumed losses {again} against"
+          f" {losses[TRAIN_CKPT_STEP:]}")
+    step_ms = statistics.median(record["ms"][1:])
+    print(f"train {name} ({cfg.num_layers} layers "
+          f"{sorted({k for k, _ in cfg.resolved_segments()})}, d "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.compute_dtype} compute, float32 parameters, remat): "
+          f"{batch} x {seq} tokens a step, AdamW warmup 1: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {', '.join(f'{x:.1f}' for x in record['ms'])}, "
+          f"median of steps 2-{TRAIN_STEPS} {step_ms:.3f} ms, "
+          f"{batch * seq / (step_ms / 1e3):.0f} tokens/s; every parameter "
+          f"changed at every step; launches a step {per_step} (exact); "
+          f"checkpoint of step {TRAIN_CKPT_STEP} restored bit for bit "
+          f"(save {record['save_s']:.1f} s host copy, check "
+          f"{record['restore_s']:.1f} s incl. the write); resumed from it: "
+          f"losses {', '.join(f'{x:.4f}' for x in again)}, err/|loss| "
+          f"{drift:.3e} (tol {RESUME_TOL}); peak {peak / 2 ** 30:.2f} GiB "
+          f"(traced steps; reckoned {reckoned:.2f} GB: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in terms.items())
+          + f"); traced step wall {wall:.1f} ms, busy {busy / wall:.1%}, "
+          f"{ops} device ops; {time.perf_counter() - t0:.1f} s [{label}]")
+    return {k: sum(c[k] for c in record["launches"]) for k in per_step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2528,6 +2925,7 @@ def main() -> int:
     errs.update(phase_conv_kernels(gen, conv_factors, errs))
     phase_sharded_conv_kernels(gen, planner, errs)
     phase_lm_kernels(gen, conv_factors, errs)
+    phase_train_kernels(gen, conv_factors, errs)
     print("kernels " + json.dumps(errs))
 
     # phase 3: the N-D FFT path at real size
@@ -2615,12 +3013,33 @@ def main() -> int:
             kind_launches[kernel] = kind_launches.get(kernel, 0) + n
     print(f"LM phase: 16 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 17: training at olmo-1b's width
+    t0 = time.perf_counter()
+    fftconv_lm = dataclasses.replace(
+        olmo, segments=(("fftconv_mlp", olmo.num_layers),))
+    phase_conv_grad(label, planner, gen)
+    phase_train_step32(label, fftconv_lm, planner)
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        train_launches = phase_training(
+            label, "FFT-conv LM", fftconv_lm, planner, TRAIN_B, TRAIN_S,
+            {k: v * olmo.num_layers for k, v in TRAIN_LAYER_LAUNCHES.items()},
+            ckpt_root)
+        for kernel, n in phase_training(
+                label, "olmo-1b", olmo, None, OLMO_TRAIN_B, OLMO_TRAIN_S,
+                dict.fromkeys(TRAIN_LAYER_LAUNCHES, 0), ckpt_root).items():
+            train_launches[kernel] += n
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    print(f"LM phase: 17 took {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches in the counted run of every path: the N-D FFT
     # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving
-    # (15), the other layer kinds served (16: none, checked there)
+    # (15), the other layer kinds served (16: none, checked there),
+    # training (17: the steps of both runs)
     paths = {"nd_fft": launches, "mixer": mixer_launches,
              "fftconv_fused": fused_launches, "lm_serve": lm_launches,
-             "lm_kinds_serve": kind_launches}
+             "lm_kinds_serve": kind_launches, "lm_train": train_launches}
 
     def counts(name):
         by_path = {path: c[name] for path, c in paths.items()}

@@ -7,7 +7,8 @@ plan with the very same factorization, so both packages can run one
 recipe. Backend names map jnp -> torch, pallas -> hopper, xla_native ->
 torch_native. The FFT-conv mixer has weights: ``fftconv_mixer_from_reference``
 carries the reference's parameters across, ``lm_from_reference`` those of
-a whole LM, and ``cache_from_reference`` its decode cache.
+a whole LM, ``adamw_state_from_reference`` its optimizer state and
+``cache_from_reference`` its decode cache.
 """
 
 from __future__ import annotations
@@ -88,44 +89,82 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def flatten_reference(tree: Mapping[str, Any],
+                      cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """A tree shaped as ``repro.models.lm.init_params``' (the parameters,
+    or AdamW's ``mu``/``nu`` or gradients that mirror them), as numpy
+    arrays by the port's parameter names: each segment's leading layer
+    axis unstacked into ``layers.<i>``, the shared block (``tree["shared"]``,
+    whose segments are empty) under ``shared``."""
+    flat: Dict[str, np.ndarray] = {"embed": np.asarray(tree["embed"])}
+    if "lm_head" in tree:
+        flat["lm_head"] = np.asarray(tree["lm_head"])
+    for name, a in tree["final_norm"].items():
+        flat[f"final_norm.{name}"] = np.asarray(a)
+    for part, sub in tree.get("shared", {}).items():
+        for name, a in sub.items():
+            flat[f"shared.{part}.{name}"] = np.asarray(a)
+    i = 0
+    for seg, (_, count) in zip(tree["segments"], cfg.resolved_segments()):
+        for j in range(count):
+            for part, sub in seg.get("layers", {}).items():
+                for name, a in sub.items():
+                    flat[f"layers.{i + j}.{part}.{name}"] = np.asarray(a)[j]
+        i += count
+    return flat
+
+
+def _by_name(tree: Mapping[str, Any], cfg: ArchConfig, model: LM,
+             what: str) -> Dict[str, torch.Tensor]:
+    """``flatten_reference(tree)`` as tensors, checked name for name and
+    shape for shape against ``model``'s parameters."""
+    flat = flatten_reference(tree, cfg)
+    ours = dict(model.named_parameters())
+    if set(ours) != set(flat):
+        raise ValueError(f"{what} the reference lacks: "
+                         f"{sorted(set(ours) - set(flat))}; the port lacks: "
+                         f"{sorted(set(flat) - set(ours))}")
+    out = {}
+    for name, param in ours.items():
+        value = _tensor(flat[name])
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
+                             f"LM needs {tuple(param.shape)}")
+        out[name] = value
+    return out
+
+
 def lm_from_reference(params: Mapping[str, Any], cfg: ArchConfig,
                       planner: Optional[Planner] = None,
                       device=None) -> LM:
     """The reference's LM parameters (``repro.models.lm.init_params``' tree,
     as numpy arrays) as an ``LM`` of ``cfg`` on ``device`` (None: the GPU).
-    Each segment's leading layer axis is unstacked into the port's layers;
-    the shared block (``params["shared"]``, whose segments are empty)
-    becomes the LM's ``shared``. A parameter missing on either side or of
+    Each segment's leading layer axis is unstacked into the port's layers
+    (``flatten_reference``). A parameter missing on either side or of
     another shape raises."""
     model = LM(cfg, planner=planner, device=device)
-    flat: Dict[str, np.ndarray] = {"embed": params["embed"]}
-    if "lm_head" in params:
-        flat["lm_head"] = params["lm_head"]
-    for name, a in params["final_norm"].items():
-        flat[f"final_norm.{name}"] = a
-    for part, tree in params.get("shared", {}).items():
-        for name, a in tree.items():
-            flat[f"shared.{part}.{name}"] = a
-    i = 0
-    for seg, (_, count) in zip(params["segments"], cfg.resolved_segments()):
-        for j in range(count):
-            for part, tree in seg.get("layers", {}).items():
-                for name, a in tree.items():
-                    flat[f"layers.{i + j}.{part}.{name}"] = np.asarray(a)[j]
-        i += count
-    ours = dict(model.named_parameters())
-    if set(ours) != set(flat):
-        raise ValueError(f"parameters the reference lacks: "
-                         f"{sorted(set(ours) - set(flat))}; the port lacks: "
-                         f"{sorted(set(flat) - set(ours))}")
+    values = _by_name(params, cfg, model, "parameters")
     with torch.no_grad():
-        for name, param in ours.items():
-            value = _tensor(flat[name])
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
-                                 f"LM needs {tuple(param.shape)}")
-            param.copy_(value)
+        for name, param in model.named_parameters():
+            param.copy_(values[name])
     return model
+
+
+def adamw_state_from_reference(opt_state: Mapping[str, Any],
+                               cfg: ArchConfig, model: LM) -> Dict[str, Any]:
+    """The reference's AdamW state (``repro.optim.adamw_init``'s or
+    ``adamw_update``'s, as numpy arrays: ``mu`` and ``nu`` mirror
+    ``init_params``' tree, ``step`` a scalar) as the port's ``{"mu", "nu",
+    "step"}``: float32 moments by ``model``'s parameter names on its
+    device, ``step`` a 0-d int32 tensor."""
+    dev = model.device
+    state = {m: {n: t.to(device=dev, dtype=torch.float32)
+                 for n, t in _by_name(opt_state[m], cfg, model,
+                                      f"{m} entries").items()}
+             for m in ("mu", "nu")}
+    state["step"] = torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=dev)
+    return state
 
 
 CACHE_NAMES = ("k", "v", "v_hist", "conv", "ssd", "mlstm") + SLSTM_STATE

@@ -13,6 +13,16 @@ transforms run the four-step kernel under the ``hopper`` planner, and the
 ``(B, L, D) <-> (B, D, L)`` moves run the tiled transpose kernel; on the
 CPU their plain versions run.
 
+``fft_conv`` is a ``torch.autograd.Function`` whose backward runs the same
+ops. The gradient of a causal convolution is a correlation, an FFT
+convolution against the conjugate spectrum: with ``G`` the spectrum of the
+zero-padded output gradient ``g``, ``grad_u = crop(ifft(G * conj(K)))`` and
+``grad_k = crop(ifft(sum_b conj(U_b) * G_b))``. Both crops are exact:
+``nf >= 2L``, so a circular correlation cropped to its first L entries
+wraps only onto the zero padding. The forward saves the spectra ``U`` and
+``K`` (in the plan's order, permuted or not); under non-reentrant
+checkpointing they come from the recompute.
+
 ``fft_conv_seq_sharded`` is the paper's distributed algorithm with the
 sequence sharded over a mesh axis: the length-nf signal is viewed as an
 (n1, n2) row-major matrix sharded over n1,
@@ -40,6 +50,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels.transpose import transpose
 from ..kernels.twiddle import complex_multiply
@@ -113,6 +124,55 @@ def materialize_filter(weights: torch.Tensor, length: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _spectrum(plan, x: torch.Tensor) -> Complex:
+    """The plan's transform of the real rows ``x`` (..., L), zero-padded to
+    ``plan.n``, in float32."""
+    xp = torch.nn.functional.pad(x.float(), (0, plan.n - x.shape[-1]))
+    return execute(plan, (xp, torch.zeros_like(xp)))
+
+
+def _real_crop(plan, spec: Complex, length: int) -> torch.Tensor:
+    """The first ``length`` entries of the real part of the plan's inverse
+    of ``spec``."""
+    return execute_inverse(plan, spec)[0][..., :length]
+
+
+def _conj(z: Complex) -> Complex:
+    return z[0], -z[1]
+
+
+class _FFTConv(torch.autograd.Function):
+    """``fft_conv`` of (B, L, D) activations and (D, L) filters with its
+    correlation backward, every product on ``complex_multiply``."""
+
+    @staticmethod
+    def forward(ctx, u, k, plan):
+        slen = u.shape[1]
+        uf = _spectrum(plan, transpose(u))                       # (B, D, nf)
+        kf = _spectrum(plan, k)                                  # (D, nf)
+        y = _real_crop(plan, complex_multiply(uf, kf), slen)
+        ctx.plan, ctx.dtypes = plan, (u.dtype, k.dtype)
+        ctx.save_for_backward(*uf, *kf)
+        return transpose(y).to(u.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        plan, (u_dtype, k_dtype) = ctx.plan, ctx.dtypes
+        ur, ui, kr, ki = ctx.saved_tensors
+        slen = g.shape[1]
+        gf = _spectrum(plan, transpose(g))                       # (B, D, nf)
+        grad_u = grad_k = None
+        if ctx.needs_input_grad[0]:
+            y = _real_crop(plan, complex_multiply(gf, _conj((kr, ki))), slen)
+            grad_u = transpose(y).to(u_dtype)
+        if ctx.needs_input_grad[1]:
+            pr, pi = complex_multiply(gf, _conj((ur, ui)))
+            grad_k = _real_crop(plan, (pr.sum(0), pi.sum(0)),
+                                slen).to(k_dtype)
+        return grad_u, grad_k, None
+
+
 def fft_conv(u: torch.Tensor, k: torch.Tensor,
              planner: Optional[Planner] = None, permuted: bool = True,
              device=None) -> torch.Tensor:
@@ -121,26 +181,17 @@ def fft_conv(u: torch.Tensor, k: torch.Tensor,
     u: (B, L, D) real activations; k: (D, L) real causal filters. Returns
     (B, L, D) in ``u``'s dtype, on ``device`` (None: the GPU). Uses c2c on
     the real signal (imag = 0) so the permuted-order transpose elision
-    applies end to end. On the GPU the kernels record nothing for autograd:
-    an input that requires grad raises unless autograd is off.
+    applies end to end. Differentiable in ``u`` and ``k`` on every device:
+    the backward runs the same kernels (the module docstring), and its
+    gradients come back in ``u``'s and ``k``'s dtypes.
     """
     dev = resolve_device(device)
     u = torch.as_tensor(u).to(dev)
-    b, slen, d = u.shape
-    nf = next_fft_len(2 * slen)
+    k = torch.as_tensor(k).to(dev)
+    nf = next_fft_len(2 * u.shape[1])
     planner = planner or Planner(backends=("torch",))
     plan = planner.plan(nf, kind="c2c", permuted=permuted)
-
-    ut = transpose(u).float()                                   # (B, D, L)
-    up = torch.nn.functional.pad(ut, (0, nf - slen))
-    kp = torch.nn.functional.pad(torch.as_tensor(k).to(dev).float(),
-                                 (0, nf - slen))
-
-    uf = execute(plan, (up, torch.zeros_like(up)))
-    kf = execute(plan, (kp, torch.zeros_like(kp)))
-    prod = complex_multiply(uf, kf)
-    y = execute_inverse(plan, prod)[0]                          # real part
-    return transpose(y[..., :slen]).to(u.dtype)
+    return _FFTConv.apply(u, k, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +279,12 @@ def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
     (verdict cached in the planner's wisdom). The zero padding to nf is one
     exchange in and one out (uneven all_to_alls; nothing at p = 1): rank r's
     block of the padded sequence is not its block of ``u``."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (u, k)):
+        raise RuntimeError(
+            "fft_conv_seq_sharded has no backward: its exchanges record no "
+            "autograd, and its training waits for the port of parallel/ "
+            "(ROADMAP.md, Queue 1 item 7); run it under torch.no_grad()")
     planner = planner or Planner(backends=("torch",))
     dev = mesh_device(mesh)
     u = torch.as_tensor(u).to(dev)

@@ -11,7 +11,8 @@ version (``ref.py``), which the CPU path and the tests use:
 
 CUDA sources build at first use (``_build``); nothing builds at import.
 The kernels record nothing for autograd, so a wrapper handed a CUDA tensor
-that requires grad raises while autograd is on (``_grad``).
+that requires grad raises while autograd is on (``_grad``); ``fft_conv``
+carries its own backward over them.
 """
 
 from .dft_matmul import fft_four_step, fft_four_step_ref

@@ -2,7 +2,10 @@
 ``grad_fn``. A wrapper about to launch one calls :func:`refuse_autograd`
 so that a caller who asked for gradients gets an error, not gradients that
 silently leave the kernel's op out. The CPU path runs plain PyTorch and is
-differentiable.
+differentiable. A caller that needs gradients on the card goes through an
+op that carries its own backward: ``core.fftconv.fft_conv`` (and with it
+``FFTConvMixer``) is a ``torch.autograd.Function`` whose forward and
+backward launch these kernels with autograd off.
 """
 
 from __future__ import annotations

@@ -10,14 +10,15 @@ from .config import (ArchConfig, ShapeConfig, SHAPES, SHAPES_BY_NAME,
                      TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 from .frontend import mrope_positions, synth_embeddings
 from .lm import (LM, decode_step, forward, init_cache, init_params,
-                 model_meta, prefill)
+                 loss_fn, model_meta, prefill)
 from .params import ParamMeta, init_tree, param_count
 
 __all__ = [
     "blocks", "frontend", "lm", "ssm", "FFTConvMixer",
     "ArchConfig", "ShapeConfig", "SHAPES", "SHAPES_BY_NAME",
     "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
-    "LM", "model_meta", "init_params", "forward", "prefill", "init_cache",
+    "LM", "model_meta", "init_params", "forward", "loss_fn", "prefill",
+    "init_cache",
     "decode_step", "mrope_positions", "synth_embeddings",
     "ParamMeta", "init_tree", "param_count",
 ]

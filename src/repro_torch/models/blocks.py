@@ -401,10 +401,10 @@ class FFTConvMixer(nn.Module):
     (d, 2d) and ``w_out`` (d, d) normal with scale 0.02, ``filt`` (d, rank)
     normal with scale 0.2, ``skip`` (d,) ones. They are drawn from
     ``generator`` (a new one seeded 0 when None) on its own device, then
-    moved to ``device`` (None: the GPU). On the card the forward pass
-    launches the port's kernels, which record nothing for autograd, so it
-    raises unless it runs under ``torch.no_grad()``; on the CPU it is plain
-    PyTorch and differentiable.
+    moved to ``device`` (None: the GPU). The unsharded forward pass is
+    differentiable on every device (``fft_conv`` carries its backward over
+    the port's kernels); the sharded branch has no backward yet and raises
+    under grad.
 
     ``mesh`` and ``axis`` name the ``DeviceMesh`` axis the sequence is
     sharded over, and ``comm`` the exchange backend of the sharded

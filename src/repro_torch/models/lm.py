@@ -29,18 +29,28 @@ A MoE layer's capacity depends on the tokens of the call (the prompt in
 streams, whatever layout ``prefill`` was given (ROADMAP.md, Queue 3).
 Unlike the reference's ``decode_step``, which runs a ``shared_attn``
 segment once whatever its count, the port runs every occurrence; every
-shipped config has a count of 1. The training loss waits for the training
-slice.
+shipped config has a count of 1.
+
+Training: ``loss_fn`` is the reference's memory-lean cross-entropy plus
+0.01 times the MoE aux loss. With ``cfg.remat`` and autograd on,
+``forward`` checkpoints each layer (``torch.utils.checkpoint``,
+non-reentrant: the reference's ``"full"`` policy, nothing saved but the
+layer's input). Parameters stay float32 and are cast at each use, so a
+trainer never calls ``to_compute_dtype``. A ``shared_attn`` block's
+gradient is the sum over its places, as the reference's
+``params["shared"]`` is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.plan import Planner, resolve_device
 from . import blocks, ssm
@@ -224,6 +234,19 @@ class Block(nn.Module):
         return self._ffn(x)[0], cache
 
 
+def _remat(layer: Block, cfg: ArchConfig):
+    """``layer`` itself, or, with ``cfg.remat`` and autograd on, ``layer``
+    under non-reentrant checkpointing: the reference's ``"full"`` policy
+    (``nothing_saveable``), which keeps only the layer's input."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat policy {cfg.remat_policy!r}: the port recomputes whole "
+            "layers (\"full\") only")
+    return functools.partial(checkpoint, layer, use_reentrant=False)
+
+
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     """(B, S, ...) in bf16, zero-padded to S + pad along the sequence."""
     t = t.to(torch.bfloat16)
@@ -237,9 +260,9 @@ class LM(nn.Module):
     which raises without one). ``planner`` is what the FFT-conv layers hand
     ``fft_conv`` (None: the reference's default, the ``torch`` backend).
 
-    ``forward`` is differentiable on the CPU; ``prefill`` and
-    ``decode_step`` run under ``torch.no_grad()``, which the kernels need
-    on the card. Batches are ``{"tokens": (B, S) int}`` or ``{"embeds":
+    ``forward`` is differentiable on every device (``loss_fn`` is the
+    training loss); ``prefill`` and ``decode_step`` run under
+    ``torch.no_grad()``. Batches are ``{"tokens": (B, S) int}`` or ``{"embeds":
     (B, S, d)}`` (a frontend's output), with optional ``"positions"``: (B,
     S), or (3, B, S) M-RoPE streams (whose first is the sinusoid's where
     ``rope`` is ``"none"``).
@@ -329,11 +352,12 @@ class LM(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Returns (logits (B, S, V) in the compute dtype, the float32 MoE
-        aux loss summed over the layers)."""
+        aux loss summed over the layers). With ``cfg.remat`` and autograd
+        on, each layer is recomputed in the backward pass (``_remat``)."""
         x, positions = self._inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, layer_aux = layer(x, positions)
+            x, layer_aux = _remat(layer, self.cfg)(x, positions)
             if layer_aux is not None:
                 aux = aux + layer_aux
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
@@ -418,6 +442,24 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 def forward(model: LM, batch: Dict[str, torch.Tensor]):
     return model(batch)
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor]):
+    """(loss, {"nll", "aux"}): the mean next-token negative log-likelihood
+    over the labels >= 0 of ``batch["labels"]`` (B, S), plus 0.01 times the
+    MoE aux loss. The reference's memory-lean cross-entropy, step by step:
+    no (B, S, V) one-hot, the float32 cast inside the reductions."""
+    logits, aux = model(batch)
+    labels = batch["labels"].long()
+    m = logits.amax(-1).float()
+    shifted = logits.float() - m[..., None]
+    logz = m + torch.log(torch.exp(shifted).sum(-1))
+    label_logit = torch.take_along_dim(
+        logits, labels.clamp(min=0)[..., None], dim=-1)[..., 0].float()
+    mask = (labels >= 0).float()
+    nll = ((logz - label_logit) * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def prefill(model: LM, batch: Dict[str, torch.Tensor], max_len: int,

@@ -1,7 +1,9 @@
 """Helpers shared by the parity tests of the port's model stack
 (tests/test_torch_ssm.py, test_torch_lm_kinds.py, test_torch_lm_embeds.py,
-test_torch_serve_kinds.py): the same config in both packages, numpy and
-torch conversions, the tolerance check, and one reference run of an LM.
+test_torch_serve_kinds.py, test_torch_train.py,
+test_torch_train_kinds.py): the same config in both packages, numpy and
+torch conversions, the tolerance check, one reference run of an LM, and
+the training loss with its gradients against the reference's.
 
 Tolerances, each of max|ref|:
 
@@ -10,7 +12,10 @@ Tolerances, each of max|ref|:
   reference's own serving test allows: tests/test_serving.py);
 * decode caches stored in bfloat16 by both: 2^-8, one bfloat16 rounding
   step, which a float32 difference of one ulp before the cast can flip
-  (the compute tolerance where that is larger: ``close_caches``).
+  (the compute tolerance where that is larger: ``close_caches``);
+* the training loss (float32): 1e-5 of |ref| (float32 sums in another
+  order; measured at most 1e-7), each parameter's gradient 1e-4 of that
+  gradient's max|ref| (measured at most 4e-6).
 """
 
 import dataclasses
@@ -21,12 +26,14 @@ import numpy as np
 import torch
 
 from repro import configs as rconfigs
+from repro.data import SyntheticDataset as RData
 from repro.models import lm as rlm
+from repro.models.config import ShapeConfig as RShape
 from repro_torch import configs as pconfigs
-from repro_torch.convert import lm_from_reference
-from repro_torch.models.lm import padded_vocab
+from repro_torch.convert import flatten_reference, lm_from_reference
+from repro_torch.models.lm import loss_fn, padded_vocab
 
-F32_TOL, BF16_TOL, CACHE_TOL = 1e-4, 2e-2, 2.0 ** -8
+F32_TOL, BF16_TOL, CACHE_TOL, LOSS_TOL = 1e-4, 2e-2, 2.0 ** -8, 1e-5
 
 
 def cfgs(arch, **changes):
@@ -124,3 +131,35 @@ def reference_run(rc, pc, inputs, s, new):
                 prefill=np.asarray(lg), cache=ref_cache, steps=steps,
                 model=lm_from_reference(to_np(params), pc, device="cpu"),
                 tol=tol(rc))
+
+
+def tensors(batch):
+    """A numpy batch as tensors, token ids and labels as int64."""
+    return {k: torch.from_numpy(v).long() if k in ("tokens", "labels")
+            else torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def loss_parity(arch, changes, positions=None):
+    """loss_fn and every gradient against jax.value_and_grad of the
+    reference's loss_fn, on one SyntheticDataset batch of the config."""
+    rc, pc = cfgs(arch, compute_dtype="float32", **changes)
+    b = RData(rc, RShape("t", 16, 2, "train"), seed=3).batch_at(0)
+    if positions is not None:
+        b["positions"] = positions
+    params = rlm.init_params(rc, jax.random.key(0))
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p, x: rlm.loss_fn(p, rc, x), has_aux=True))(
+            params, {k: jnp.asarray(v) for k, v in b.items()})
+    model = lm_from_reference(to_np(params), pc, device="cpu")
+    ours, our_metrics = loss_fn(model, tensors(b))
+    ours.backward()
+    for name, value in (("loss", loss), ("nll", metrics["nll"]),
+                        ("aux", metrics["aux"])):
+        got = ours if name == "loss" else our_metrics[name]
+        assert abs(float(got.detach()) - float(value)) <= LOSS_TOL * abs(
+            float(value)), (name, float(got.detach()), float(value))
+    want = flatten_reference(to_np(grads), rc)
+    for name, p in model.named_parameters():
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        close(got, want[name], F32_TOL, name)
+    return float(metrics["aux"])

@@ -193,29 +193,79 @@ def test_fft_conv_and_mixer_with_the_hopper_planner(cuda):
         2e-4 * plain.abs().max().item()
 
 
-def test_kernels_and_the_mixer_refuse_autograd(cuda):
-    # the kernels record no grad_fn: with autograd on, an input that
-    # requires grad raises instead of silently dropping the op's gradient
+def test_bare_kernel_calls_refuse_autograd(cuda):
+    # the kernels record no grad_fn: with autograd on, a bare kernel call
+    # handed an input that requires grad raises instead of silently
+    # dropping the op's gradient
     x = torch.randn(2, 64, device=cuda, requires_grad=True)
     h = torch.randn(64, device=cuda)
     calls = [lambda: fft_four_step((x, x.detach()), (8, 8)),
              lambda: transpose(x),
              lambda: complex_multiply((x, x), (h, h)),
-             lambda: fftconv_fused(x, h, (8, 8)),
-             lambda: fft_conv(x.view(2, 64, 1), h.view(1, 64))]
+             lambda: fftconv_fused(x, h, (8, 8))]
     for call in calls:
         with pytest.raises(RuntimeError, match="no_grad"):
             call()
     with torch.no_grad():
         for call in calls:
             call()
-    mixer = FFTConvMixer(16, 4, generator=torch.Generator(
-        device=cuda).manual_seed(0))
-    u = torch.randn(2, 32, 16, device=cuda)
-    with pytest.raises(RuntimeError, match="no_grad"):
-        mixer(u)
-    with torch.no_grad():
-        assert mixer(u).shape == u.shape
+
+
+def _conv64(u, k):
+    """The causal convolution of (B, L, D) and (D, L) by float64 torch.fft,
+    differentiable: rfft, multiply, irfft."""
+    length = u.shape[1]
+    uf = torch.fft.rfft(u.double(), n=2 * length, dim=1)
+    kf = torch.fft.rfft(k.double(), n=2 * length, dim=1).T
+    return torch.fft.irfft(uf * kf, n=2 * length, dim=1)[:, :length]
+
+
+def test_fft_conv_and_the_mixer_backpropagate_on_the_card(cuda,
+                                                          monkeypatch):
+    # fft_conv's backward (a correlation on the same kernels) under the
+    # hopper planner: grad_u and grad_k against the autograd of a float64
+    # torch.fft rendering, 2e-4 of max|ref|; the forward launches 2 / 2 / 1
+    # four-step / transpose / complex multiply, the backward 1 / 2 / 2
+    planner = Planner(backends=("hopper",))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    u = torch.randn(2, 512, 32, device=cuda, generator=gen,
+                    requires_grad=True)
+    k = torch.randn(32, 512, device=cuda, generator=gen, requires_grad=True)
+    g = torch.randn(2, 512, 32, device=cuda, generator=gen)
+    kernels.reset_launch_counts()
+    y = fft_conv(u, k, planner=planner)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"four_step_fft": 2,
+                                       "batched_transpose": 2,
+                                       "complex_multiply": 1,
+                                       "fftconv_fused": 0}
+    kernels.reset_launch_counts()
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"four_step_fft": 1,
+                                       "batched_transpose": 2,
+                                       "complex_multiply": 2,
+                                       "fftconv_fused": 0}
+    u64 = u.detach().double().requires_grad_()
+    k64 = k.detach().double().requires_grad_()
+    _conv64(u64, k64).backward(g.double())
+    for got, want in ((u.grad, u64.grad), (k.grad, k64.grad)):
+        tol = 2e-4 * want.abs().max().item()
+        assert (got.double() - want).abs().max().item() <= tol
+    # the mixer's parameters, against the same mixer with its convolution
+    # rendered in float64
+    mixer = FFTConvMixer(32, 8, planner=planner, generator=gen)
+    x = torch.randn(2, 512, 32, device=cuda, generator=gen)
+    mixer(x).square().sum().backward()
+    got = {n: p.grad.clone() for n, p in mixer.named_parameters()}
+    mixer.zero_grad()
+    from repro_torch.models import blocks
+    monkeypatch.setattr(blocks, "fft_conv",
+                        lambda v, f, **kw: _conv64(v, f).to(v.dtype))
+    mixer(x).square().sum().backward()
+    for n, p in mixer.named_parameters():
+        tol = 2e-4 * p.grad.abs().max().item()
+        assert (got[n] - p.grad).abs().max().item() <= tol, n
 
 
 def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda):
