@@ -155,7 +155,25 @@ run from the root of a checkout. Phases, each of which raises on failure:
    only one written: TRAIN_CKPT_STEP) restored bit for bit, a run resumed
    from it within RESUME_TOL of the first run's losses; printing the
    losses, step ms, tokens/s, the peak beside its reckoning and a traced
-   step.
+   step;
+18. train on a (data, model) mesh: (a) phase 17's two Trainer runs on a
+   (1, 1) mesh at world size 1 on NCCL (FSDP2 over data), the same seed
+   and shapes: losses, grad_norms and the parameters after the last step
+   within MESH_P1_TOL of phase 17's, every parameter changed at every
+   step, the launches of every step exactly phase 17's (FSDP and the mesh
+   launch no kernel of the port); step ms, tokens/s, the peak and the busy
+   share of a traced step printed beside phase 17's; (b) the sequence-sharded mixer's
+   gradient (fft_conv_seq_sharded's backward) at (4, 8192, 2048) on (1,)
+   against the unsharded mixer's, every tensor within 2e-4*max, the
+   launches of a forward and backward exact (6 / 28 / 9), a control (K for
+   conj K) that must miss, and its times beside the forward's; (c), run
+   on phase 11's four gloo ranks: a (2, 2) mesh Trainer (tensor
+   parallelism over model, FSDP2 over data) at olmo-1b's width on two
+   layers (FFT-conv, dense), float32, against the same trainer on one
+   rank (losses, grad_norms, the first moment after the first step and
+   the parameters after the last), with a control that must miss (gradients averaged over
+   the data ranks instead of summed), and the sharded mixer's gradient
+   over (4,).
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
 at the blocks the sharded convolution and one prefill of the FFT-conv LM
@@ -326,6 +344,44 @@ TRAIN_CONV_TOL, TRAIN_STEP_TOL, RESUME_TOL = 2e-4, 1e-3, 1e-3
 # grad_u's move out, G conj(K) and conj(U) G)
 TRAIN_LAYER_LAUNCHES = {"four_step_fft": 5, "batched_transpose": 6,
                         "complex_multiply": 4, "fftconv_fused": 0}
+# phase 18: training on a (data, model) mesh. (a) the Trainer of phase 17
+# on a (1, 1) mesh at world size 1 on NCCL (FSDP2 over data, no tensor
+# parallelism), both models, the same seed and shapes: every step's loss
+# and grad_norm, and each parameter after the last step (gathered, err/max
+# per tensor), within MESH_P1_TOL of phase 17's; every parameter changed
+# at every step; the launches a step exactly phase 17's. MESH_P1_TOL
+# rests on phase 17's resumed run and this run's losses, both equal to
+# phase 17's bit for bit on the H100 (PERF.md): at world size 1 FSDP2's
+# gather and reduce-scatter copy, so nothing should move. (b) the
+# sequence-sharded mixer's gradient (fft_conv_seq_sharded's backward) at
+# MIXER_B x MIXER_S x MIXER_D on (1,) against the unsharded mixer's, every
+# tensor within SHARDED_GRAD_TOL of its max; a forward and backward
+# launches SHARDED_GRAD_LAUNCHES (the forward's 4 / 14 / 4, the backward's
+# 2 / 14 / 5: the output gradient's distributed transform and moves, G
+# conj K, conj U G and the two inverse twiddles); the control (K for
+# conj K) must miss. (c) over the GLOO_RANKS gloo ranks of phase 11, a
+# (2, 2) mesh Trainer at olmo-1b's width on MESH_LAYERS (one FFT-conv and
+# one dense layer, float32 compute, MESH_B x MESH_S) for MESH_STEPS steps
+# against the same trainer on one rank: losses and grad_norms within
+# MESH_F32_TOL of them (tests/test_torch_mesh_train.py holds 1e-5 at smoke
+# width), the first moment after the first step within MESH_F32_TOL of
+# its max per tensor (it is (1 - beta1) times the first gradients), each
+# parameter's distance from the one-rank run's after the last step within
+# MESH_UPDATE_TOL of the one-rank run's own update (|p - p1| / |p1 - p0|,
+# L2 per tensor: Adam's first steps move an element by about lr whatever
+# its gradient, so an element whose gradient is within float32 noise of 0
+# may move either way, and an element-wise limit would rest on no element
+# flipping), every parameter changed at every step; a control that must miss: FSDP2 averaging the
+# gradients over the data ranks (divide factor dp) instead of summing
+# them, which AdamW's clip makes invisible in the losses and the
+# parameters but not in grad_norm; and the sharded mixer's gradient over
+# (4,) (batch 1) within SHARDED_GRAD_TOL
+MESH_P1_TOL, SHARDED_GRAD_TOL, MESH_F32_TOL = 1e-6, 2e-4, 1e-4
+MESH_UPDATE_TOL = 5e-2
+SHARDED_GRAD_LAUNCHES = {"four_step_fft": 6, "batched_transpose": 28,
+                         "complex_multiply": 9, "fftconv_fused": 0}
+MESH_LAYERS = (("fftconv_mlp", 1), ("attn_mlp", 1))
+MESH_B, MESH_S, MESH_STEPS = 4, 2048, 3
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -1762,14 +1818,21 @@ def gloo_psum(rank, mesh) -> list:
 
 
 def gloo_rank(rank: int, store_path: str, out_path: str) -> None:
-    """gloo_rank_body, with any failure's traceback (an exit included)
-    written to ``out_path.rank<r>.err`` for phase_gloo_ranks to print."""
+    """gloo_rank_body, with any failure's traceback (an exit or a fatal
+    signal included) written to ``out_path.rank<r>.err`` for
+    phase_gloo_ranks to print."""
+    import faulthandler
     import traceback
-    try:
-        gloo_rank_body(rank, store_path, out_path)
-    except BaseException:
-        Path(f"{out_path}.rank{rank}.err").write_text(traceback.format_exc())
-        raise
+    err = Path(f"{out_path}.rank{rank}.err")
+    with open(f"{err}.fatal", "w") as fatal:
+        faulthandler.enable(file=fatal)
+        try:
+            gloo_rank_body(rank, store_path, out_path)
+        except BaseException:
+            err.write_text(traceback.format_exc())
+            raise
+        finally:
+            faulthandler.disable()
 
 
 def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
@@ -1853,9 +1916,14 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
         torch.cuda.empty_cache()
         extra += gloo_shims(rank, meshes, planner, gen)
         extra += gloo_psum(rank, meshes["(4,)"])
+        t18 = time.perf_counter()
+        torch.cuda.empty_cache()
+        # phase 18 (c) on the same ranks
+        extra += gloo_mesh_train(rank, meshes["(4,)"], planner, gen)
         if rank == 0:
             extra.append(f"gloo{GLOO_RANKS} phases 12-14 took "
-                         f"{time.perf_counter() - t0:.1f} s")
+                         f"{t18 - t0:.1f} s, phase 18 (c) took "
+                         f"{time.perf_counter() - t18:.1f} s")
             Path(out_path).write_text(json.dumps({"runs": out,
                                                   "extra": extra}))
     finally:
@@ -1875,9 +1943,10 @@ def phase_gloo_ranks() -> dict:
                                                 out_path),
                                nprocs=GLOO_RANKS, start_method="spawn")
         except Exception:
-            for err in sorted(Path(tmp).glob("gloo.json.rank*.err")):
-                print(f"phase 11 {err.name}:\n{err.read_text()}",
-                      file=sys.stderr)
+            for err in sorted(Path(tmp).glob("gloo.json.rank*.err*")):
+                if err.stat().st_size:
+                    print(f"phase 11 {err.name}:\n{err.read_text()}",
+                          file=sys.stderr)
             raise
         out = json.loads(Path(out_path).read_text())
     for name, r in out["runs"].items():
@@ -2755,9 +2824,9 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
     checkpoint of step TRAIN_CKPT_STEP restored bit for bit, a run
     resumed from it within RESUME_TOL of the first run's losses. Prints
     the losses, the median step ms of steps 2-6, tokens/s, the peak
-    against the reckoning, and a traced step. Returns the run's
-    launches."""
-    from repro_torch import kernels
+    against the reckoning, and a traced step. Returns the run's launches,
+    losses, grad_norms, parameters after the last step (on the host), step
+    ms, tokens/s, peak GiB and busy share."""
     from repro_torch.models import LM
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import AdamWConfig
@@ -2766,29 +2835,16 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
     ocfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
     ckpt_dir = str(ckpt_root / name)
     t0 = time.perf_counter()
-    record = dict(ms=[], launches=[], unchanged=[], restored=None)
+    record = dict(restored=None)
+    # writes no checkpoint: the resumed run (see TRAIN_CKPT_STEP)
+    Resumed = step_recorder()
 
-    class Recorded(Trainer):
-        def train_step(self, model, opt_state, batch_):
-            before = {n: p.detach().clone()
-                      for n, p in model.named_parameters()}
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            t1 = time.perf_counter()
-            out = super().train_step(model, opt_state, batch_)
-            torch.cuda.synchronize()
-            record["ms"].append((time.perf_counter() - t1) * 1e3)
-            record["launches"].append(kernels.launch_counts())
-            record["unchanged"].append(
-                [n for n, p in model.named_parameters()
-                 if torch.equal(p, before[n])])
-            return out
-
+    class Recorded(Resumed):
         def save(self, step, model, opt_state):
             # the checkpoint under test only (TRAIN_CKPT_STEP)
             if step != TRAIN_CKPT_STEP:
                 return
-            super().save(step, model, opt_state)
+            Trainer.save(self, step, model, opt_state)
             self.ckpt.wait()
             t1 = time.perf_counter()
             live = {"params": dict(model.named_parameters()),
@@ -2805,10 +2861,6 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
             record["restore_s"] = time.perf_counter() - t1
             del back
 
-    class Resumed(Trainer):
-        def save(self, step, model, opt_state):
-            pass                        # see TRAIN_CKPT_STEP
-
     def trainer(cls):
         model = LM(cfg, planner=planner, generator=torch.Generator(
             device="cuda").manual_seed(SEED))
@@ -2819,14 +2871,15 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
     tr = trainer(Recorded)
     n_params = sum(p.numel() for p in tr._model.parameters())
     model, opt_state, hist = tr.run(TRAIN_STEPS)
+    final = {n: p.detach().cpu() for n, p in model.named_parameters()}
     losses = [h["loss"] for h in hist]
     check(len(hist) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"{name}: losses {losses}")
-    check(not any(record["unchanged"]), f"{name}: parameters unchanged by "
-          f"a step: {[u[:3] for u in record['unchanged']]}")
-    check(all(c == per_step for c in record["launches"]),
-          f"{name}: launches a step {record['launches']}, expected "
-          f"{per_step}")
+    check(not any(tr.unchanged), f"{name}: parameters unchanged by "
+          f"a step: {[u[:3] for u in tr.unchanged]}")
+    check(all(c == per_step for c in tr.launches),
+          f"{name}: launches a step {tr.launches}, expected {per_step}")
+    ms, launches = tr.ms, tr.launches
     check(record["restored"] is True, f"{name}: the step "
           f"{TRAIN_CKPT_STEP} checkpoint did not restore bit for bit")
     torch.cuda.reset_peak_memory_stats()
@@ -2853,14 +2906,14 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
     check(len(again) == TRAIN_STEPS - TRAIN_CKPT_STEP
           and drift <= RESUME_TOL, f"{name}: resumed losses {again} against"
           f" {losses[TRAIN_CKPT_STEP:]}")
-    step_ms = statistics.median(record["ms"][1:])
+    step_ms = statistics.median(ms[1:])
     print(f"train {name} ({cfg.num_layers} layers "
           f"{sorted({k for k, _ in cfg.resolved_segments()})}, d "
           f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, "
           f"{cfg.compute_dtype} compute, float32 parameters, remat): "
           f"{batch} x {seq} tokens a step, AdamW warmup 1: losses "
           + ", ".join(f"{x:.4f}" for x in losses)
-          + f"; step ms {', '.join(f'{x:.1f}' for x in record['ms'])}, "
+          + f"; step ms {', '.join(f'{x:.1f}' for x in ms)}, "
           f"median of steps 2-{TRAIN_STEPS} {step_ms:.3f} ms, "
           f"{batch * seq / (step_ms / 1e3):.0f} tokens/s; every parameter "
           f"changed at every step; launches a step {per_step} (exact); "
@@ -2873,7 +2926,380 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
           + ", ".join(f"{k} {v:.2f}" for k, v in terms.items())
           + f"); traced step wall {wall:.1f} ms, busy {busy / wall:.1%}, "
           f"{ops} device ops; {time.perf_counter() - t0:.1f} s [{label}]")
-    return {k: sum(c[k] for c in record["launches"]) for k in per_step}
+    return dict(launches={k: sum(c[k] for c in launches)
+                          for k in per_step},
+                losses=losses, grad_norms=[h["grad_norm"] for h in hist],
+                params=final, step_ms=step_ms,
+                tok_s=batch * seq / (step_ms / 1e3), peak_gib=peak / 2 ** 30,
+                busy=busy / wall)
+
+
+# ---------------------------------------------------------------------------
+# training on a (data, model) mesh (phase 18)
+# ---------------------------------------------------------------------------
+
+
+def step_recorder():
+    """A Trainer that records each step's wall ms, its kernel launches and
+    the parameters it left unchanged (this rank's blocks), and writes no
+    checkpoint (the CPU tests hold the mesh's)."""
+    from repro_torch import kernels
+    from repro_torch.optim.adamw import local
+    from repro_torch.runtime import Trainer
+
+    class Recorded(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ms, self.launches, self.unchanged = [], [], []
+
+        def train_step(self, model, opt_state, batch_):
+            before = {n: local(p).detach().clone()
+                      for n, p in model.named_parameters()}
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            out = super().train_step(model, opt_state, batch_)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t1) * 1e3)
+            self.launches.append(kernels.launch_counts())
+            self.unchanged.append(
+                [n for n, p in model.named_parameters()
+                 if torch.equal(local(p), before[n])])
+            return out
+
+        def save(self, step, model, opt_state):
+            pass
+    return Recorded
+
+
+def gathered(tr, tree) -> dict:
+    """Each tensor of ``tree`` (the Trainer's parameters, or a moment)
+    whole, from this rank's blocks on ``tr``'s mesh: a collective, every
+    rank calls it."""
+    from repro_torch.optim.adamw import local
+    return {n: tr.shardings["params"][n].gather(local(t).detach())
+            for n, t in tree.items()}
+
+
+def rel_diffs(got: dict, want: dict) -> dict:
+    """Per tensor max|got - want| / max|want| (0 where both are 0)."""
+    out = {}
+    for n, w in want.items():
+        w = w.to(got[n].device)
+        scale = w.abs().max().item()
+        out[n] = (got[n] - w).abs().max().item() / (scale or 1.0)
+    return out
+
+
+def worst(errs: dict) -> tuple:
+    """(name, value) of the largest entry."""
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def phase_mesh_training(label, name, cfg, planner, batch: int, seq: int,
+                        per_step: dict, mesh, single: dict) -> dict:
+    """Phase 17's run of ``cfg`` through the Trainer on ``mesh`` (a (1, 1)
+    mesh at world size 1: FSDP2 over data): every step's loss and
+    grad_norm, and each parameter after the last step, within MESH_P1_TOL
+    of phase 17's (``single``); every parameter changed at every step;
+    every step's launches exactly ``per_step``; prints step ms, tokens/s,
+    the peak of a traced step and its busy share beside phase 17's.
+    Returns the run's launches."""
+    from repro_torch.models import LM
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    shape = ShapeConfig("train", seq, batch, "train")
+    model = LM(cfg, planner=planner, generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        tr = step_recorder()(
+            cfg, shape, mesh, TrainerConfig(ckpt_dir=tmp,
+                                            ckpt_every=10 ** 9),
+            AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+            planner=planner, model=model)
+        model, opt_state, hist = tr.run(TRAIN_STEPS)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    drift = max(abs(a - b) / abs(b) for a, b in zip(losses, single["losses"]))
+    norm_drift = max(abs(a - b) / abs(b)
+                     for a, b in zip(norms, single["grad_norms"]))
+    par_name, par_err = worst(rel_diffs(
+        gathered(tr, dict(model.named_parameters())), single["params"]))
+    check(len(losses) == TRAIN_STEPS and drift <= MESH_P1_TOL,
+          f"{name} on the (1, 1) mesh: losses {losses} against phase 17's "
+          f"{single['losses']}")
+    check(norm_drift <= MESH_P1_TOL, f"{name} on the (1, 1) mesh: "
+          f"grad_norms {norms} against phase 17's {single['grad_norms']}")
+    check(par_err <= MESH_P1_TOL, f"{name} on the (1, 1) mesh: parameter "
+          f"{par_name} after step {TRAIN_STEPS} err/max {par_err} against "
+          f"phase 17's")
+    check(not any(tr.unchanged), f"{name} on the (1, 1) mesh: parameters "
+          f"unchanged by a step: {[u[:3] for u in tr.unchanged]}")
+    check(all(c == per_step for c in tr.launches),
+          f"{name} on the (1, 1) mesh: launches a step {tr.launches}, "
+          f"expected {per_step}")
+    torch.cuda.reset_peak_memory_stats()
+    step_batch = tr.batch_at(TRAIN_STEPS)
+    wall, busy, ops = phase_profile(label, [(
+        f"{name} training step on the (1, 1) mesh {batch} x {seq}",
+        lambda: Trainer.train_step(tr, model, opt_state, step_batch))],
+        top=15)[0]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(tr.ms[1:])
+    tok_s = batch * seq / (step_ms / 1e3)
+    print(f"train mesh {name} on a (1, 1) (data, model) mesh, NCCL world "
+          f"size 1, FSDP2: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f", err/|loss| against phase 17 {drift:.3e}, grad_norm "
+          f"{norm_drift:.3e}, parameters after step {TRAIN_STEPS} err/max "
+          f"{par_err:.3e} (worst {par_name}) (tol {MESH_P1_TOL}); every "
+          f"parameter changed at every step; launches a step {per_step} "
+          f"(exact); step ms {', '.join(f'{x:.1f}' for x in tr.ms)}, "
+          f"median of steps 2-{TRAIN_STEPS} {step_ms:.3f} ms "
+          f"({single['step_ms']:.3f} without the mesh, "
+          f"{step_ms / single['step_ms']:.3f}x), {tok_s:.0f} tokens/s "
+          f"({single['tok_s']:.0f}); peak {peak:.2f} GiB "
+          f"({single['peak_gib']:.2f}); busy {busy / wall:.1%} "
+          f"({single['busy']:.1%}); {ops} device ops; "
+          f"{time.perf_counter() - t0:.1f} s [{label}]")
+    launches = {k: sum(c[k] for c in tr.launches) for k in per_step}
+    del model, opt_state, tr, step_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mixer_grads(mixer, x, w, sharded: bool) -> dict:
+    """The gradients of sum(mixer(x) * w) in x and in every parameter."""
+    xr = x.detach().clone().requires_grad_()
+    mixer.zero_grad(set_to_none=True)
+    (mixer(xr, seq_axis_sharded=sharded) * w).sum().backward()
+    out = {"x": xr.grad}
+    out.update({n: p.grad.clone() for n, p in mixer.named_parameters()})
+    mixer.zero_grad(set_to_none=True)
+    return out
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    return {k: ((got[k] - want[k]).abs().max()
+                / want[k].abs().max()).item() for k in want}
+
+
+def phase_sharded_mixer_grad(label, planner, gen, m1) -> dict:
+    """The sequence-sharded mixer's gradient on (1,) at MIXER_B x MIXER_S x
+    MIXER_D: every gradient within SHARDED_GRAD_TOL of the unsharded
+    mixer's max, the launches of a forward and backward exactly
+    SHARDED_GRAD_LAUNCHES, the control (K for conj K in the backward) out
+    of the limit; forward and forward + backward timed beside the
+    unsharded mixer's. Returns the launches."""
+    from repro_torch.core import fftconv
+    from repro_torch.models import FFTConvMixer
+    t0 = time.perf_counter()
+    mixer = FFTConvMixer(MIXER_D, MIXER_RANK, planner=planner,
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(SEED),
+                         mesh=m1, axis="fft")
+    x = randn((MIXER_B, MIXER_S, MIXER_D), gen)
+    w = randn((MIXER_B, MIXER_S, MIXER_D), gen)
+    want = mixer_grads(mixer, x, w, False)
+    got, launches, seconds = counted(lambda: mixer_grads(mixer, x, w, True))
+    errs = grad_errors(got, want)
+    check(launches == SHARDED_GRAD_LAUNCHES, f"sharded mixer gradient: "
+          f"launches {launches}, expected {SHARDED_GRAD_LAUNCHES}")
+    check(max(errs.values()) <= SHARDED_GRAD_TOL, f"sharded mixer "
+          f"gradient: err/max {errs} > {SHARDED_GRAD_TOL}")
+    del got
+    conj = fftconv._conj
+    fftconv._conj = lambda z: z             # the control: K for conj K
+    try:
+        control = grad_errors(mixer_grads(mixer, x, w, True), want)
+    finally:
+        fftconv._conj = conj
+    check(max(control.values()) > SHARDED_GRAD_TOL,
+          f"sharded mixer gradient control within the limit: {control}")
+    times = {}
+    for sharded in (False, True):
+        key = "sharded" if sharded else "unsharded"
+        with torch.no_grad():
+            times[f"{key} forward"] = time_variant(
+                lambda: mixer(x, seq_axis_sharded=sharded), 5)[0]
+        times[f"{key} forward + backward"] = time_variant(
+            lambda: mixer_grads(mixer, x, w, sharded), 5)[0]
+    print(f"sharded mixer gradient FFTConvMixer({MIXER_D}, {MIXER_RANK}) "
+          f"{tuple(x.shape)} on (1,) NCCL: err/max "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {SHARDED_GRAD_TOL}) against the unsharded mixer; "
+          f"control (K for conj K) {max(control.values()):.3e}; launches "
+          f"{launches} (exact); {seconds:.3f} s first call; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; {time.perf_counter() - t0:.1f} s [{label}]")
+    phase_profile(label, [("sharded mixer forward + backward on (1,)",
+                           lambda: mixer_grads(mixer, x, w, True))])
+    del mixer, x, w, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_cfg():
+    """olmo-1b at its width on MESH_LAYERS, float32 compute."""
+    from repro_torch.configs import get_config
+    olmo = get_config("olmo-1b")
+    return dataclasses.replace(olmo, segments=MESH_LAYERS,
+                               num_layers=sum(n for _, n in MESH_LAYERS),
+                               compute_dtype="float32")
+
+
+def gloo_mesh_train(rank, mesh4, planner, gen) -> list:
+    """Phase 18 (c) over the gloo ranks: a (2, 2) mesh Trainer of
+    ``mesh_cfg`` for MESH_STEPS steps, held on rank 0 against the same
+    trainer on one rank (losses, grad_norms, the first moment after the
+    first step, the parameters after the last), with its control (gradients averaged
+    over the data ranks) one step long; the sharded mixer's gradient over
+    (4,) against the unsharded mixer's on rank 0. Returns rank 0's
+    lines."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import make_mesh
+    from repro_torch.models import FFTConvMixer, LM
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainerConfig
+    cfg = mesh_cfg()
+    shape = ShapeConfig("train", MESH_S, MESH_B, "train")
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=MESH_STEPS)
+    mesh = make_mesh((2, 2), ("data", "model"),
+                     timeout=datetime.timedelta(seconds=300),
+                     device_type="cuda")
+    per_step = dict(TRAIN_LAYER_LAUNCHES)
+
+    class Recorded(step_recorder()):
+        # the first moment after the first step: (1 - beta1) times its
+        # (clipped) gradients, whole
+        mu1 = None
+
+        def train_step(self, model, opt_state, batch_):
+            out = super().train_step(model, opt_state, batch_)
+            if self.mu1 is None:
+                mu = out[1]["mu"]
+                self.mu1 = (gathered(self, mu) if self.mesh is not None
+                            else {n: t.clone() for n, t in mu.items()})
+            return out
+
+    class Averaged(Recorded):
+        # the control: FSDP2 divides the summed gradients by dp
+        def _shard(self, model):
+            super()._shard(model)
+            for module in model.modules():
+                if hasattr(module, "set_gradient_divide_factor"):
+                    module.set_gradient_divide_factor(float(mesh.size(0)))
+
+    def run(m, cls=Recorded, steps=MESH_STEPS):
+        model = LM(cfg, planner=planner, generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        first = ({n: p.detach().clone() for n, p in
+                  model.named_parameters()} if m is None else None)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+            tr = cls(cfg, shape, m, TrainerConfig(ckpt_dir=tmp,
+                                                  ckpt_every=10 ** 9),
+                     ocfg, planner=planner, model=model)
+            model, opt_state, hist = tr.run(steps)
+        params = dict(model.named_parameters())
+        if m is not None:
+            params = gathered(tr, params)
+        return dict(losses=[h["loss"] for h in hist], ms=tr.ms,
+                    norms=[h["grad_norm"] for h in hist],
+                    launches=tr.launches, unchanged=tr.unchanged,
+                    first=first, params=params, mu1=tr.mu1)
+
+    t0 = time.perf_counter()
+    got = run(mesh)
+    check(all(c == per_step for c in got["launches"]), f"gloo rank {rank} "
+          f"(2, 2) mesh training: launches a step {got['launches']}, "
+          f"expected {per_step}")
+    check(not any(got["unchanged"]), f"gloo rank {rank} (2, 2) mesh "
+          f"training: parameters unchanged by a step: "
+          f"{[u[:3] for u in got['unchanged']]}")
+    control = run(mesh, Averaged, 1)["norms"][0]
+    if rank:
+        del got
+    lines = []
+    if rank == 0:
+        torch.cuda.empty_cache()
+        one = run(None)
+        drift = max(abs(a - b) / abs(b)
+                    for a, b in zip(got["losses"], one["losses"]))
+        norm_drift = max(abs(a - b) / abs(b)
+                         for a, b in zip(got["norms"], one["norms"]))
+        missed = abs(control - one["norms"][0]) / one["norms"][0]
+        mu_name, mu_err = worst(rel_diffs(got["mu1"], one["mu1"]))
+        moved = {n: ((got["params"][n] - p).norm()
+                     / (p - one["first"][n]).norm()).item()
+                 for n, p in one["params"].items()}
+        par_name, par_err = worst(moved)
+        check(drift <= MESH_F32_TOL and norm_drift <= MESH_F32_TOL,
+              f"gloo (2, 2) mesh training: losses {got['losses']}, "
+              f"grad_norms {got['norms']} against one rank's "
+              f"{one['losses']}, {one['norms']}")
+        check(mu_err <= MESH_F32_TOL, f"gloo (2, 2) mesh training: first "
+              f"moment after step 1 {mu_name} err/max {mu_err} > "
+              f"{MESH_F32_TOL}")
+        check(par_err <= MESH_UPDATE_TOL, f"gloo (2, 2) mesh training: "
+              f"parameter {par_name} |p - p1| / |p1 - p0| {par_err} > "
+              f"{MESH_UPDATE_TOL}")
+        check(missed > MESH_F32_TOL, f"gloo (2, 2) mesh training control "
+              f"(gradients averaged over data): grad_norm {control} within "
+              f"{MESH_F32_TOL} of one rank's {one['norms'][0]}")
+        lines.append(
+            f"gloo{GLOO_RANKS} mesh train olmo-1b width on {MESH_LAYERS} "
+            f"(2, 2) (data, model), float32, {MESH_B} x {MESH_S} a step: "
+            f"losses " + ", ".join(f"{x:.6f}" for x in got["losses"])
+            + ", one rank " + ", ".join(f"{x:.6f}" for x in one["losses"])
+            + f", err/|loss| {drift:.3e}, grad_norm {norm_drift:.3e} (tol "
+            f"{MESH_F32_TOL}); first moment after step 1 err/max "
+            f"{mu_err:.3e} (worst {mu_name}, tol {MESH_F32_TOL}); after "
+            f"step {MESH_STEPS} parameters |p - p1| / |p1 - p0| "
+            f"{par_err:.3e} (worst "
+            f"{par_name}, tol {MESH_UPDATE_TOL}); every parameter changed "
+            f"at every step; control (gradients averaged over data) "
+            f"grad_norm {control:.6f} against {one['norms'][0]:.6f}, "
+            f"{missed:.3e} off; rank 0 launches a step "
+            f"{got['launches'][0]} (exact); step ms "
+            f"{', '.join(f'{x:.1f}' for x in got['ms'])} (one rank "
+            f"{', '.join(f'{x:.1f}' for x in one['ms'])}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del one, got
+    dist.barrier()
+    torch.cuda.empty_cache()
+    # the sharded mixer's gradient over (4,), batch 1
+    mixer = FFTConvMixer(MIXER_D, MIXER_RANK, planner=planner,
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(SEED),
+                         mesh=mesh4, axis="fft")
+    x = randn((1, MIXER_S, MIXER_D), gen)           # the same on every rank
+    w = randn((1, MIXER_S, MIXER_D), gen)
+    width = MIXER_S // GLOO_RANKS
+    blk = slice(rank * width, (rank + 1) * width)
+    got, launches, seconds = counted(
+        lambda: mixer_grads(mixer, x[:, blk], w[:, blk], True))
+    check(launches == SHARDED_GRAD_LAUNCHES, f"gloo rank {rank} sharded "
+          f"mixer gradient: launches {launches}, expected "
+          f"{SHARDED_GRAD_LAUNCHES}")
+    got["x"] = gather_blocks(got["x"].contiguous(), mesh4, [(1, "fft")])
+    if rank == 0:
+        errs = grad_errors(got, mixer_grads(mixer, x, w, False))
+        check(max(errs.values()) <= SHARDED_GRAD_TOL, f"gloo sharded mixer "
+              f"gradient: err/max {errs} > {SHARDED_GRAD_TOL}")
+        lines.append(
+            f"gloo{GLOO_RANKS} sharded mixer gradient "
+            f"FFTConvMixer({MIXER_D}, {MIXER_RANK}) {tuple(x.shape)} on "
+            f"(4,): err/max " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in errs.items())
+            + f" (tol {SHARDED_GRAD_TOL}) against the unsharded mixer; rank"
+            f" 0 launches {launches} (exact); {seconds:.3f} s first call")
+    return lines
 
 
 def main() -> int:
@@ -3020,26 +3446,56 @@ def main() -> int:
     phase_conv_grad(label, planner, gen)
     phase_train_step32(label, fftconv_lm, planner)
     ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    fftconv_step = {k: v * olmo.num_layers
+                    for k, v in TRAIN_LAYER_LAUNCHES.items()}
+    olmo_step = dict.fromkeys(TRAIN_LAYER_LAUNCHES, 0)
     try:
-        train_launches = phase_training(
+        single = {"FFT-conv LM": phase_training(
             label, "FFT-conv LM", fftconv_lm, planner, TRAIN_B, TRAIN_S,
-            {k: v * olmo.num_layers for k, v in TRAIN_LAYER_LAUNCHES.items()},
-            ckpt_root)
-        for kernel, n in phase_training(
-                label, "olmo-1b", olmo, None, OLMO_TRAIN_B, OLMO_TRAIN_S,
-                dict.fromkeys(TRAIN_LAYER_LAUNCHES, 0), ckpt_root).items():
-            train_launches[kernel] += n
+            fftconv_step, ckpt_root)}
+        single["olmo-1b"] = phase_training(
+            label, "olmo-1b", olmo, None, OLMO_TRAIN_B, OLMO_TRAIN_S,
+            olmo_step, ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    train_launches = {k: sum(r["launches"][k] for r in single.values())
+                      for k in fftconv_step}
     print(f"LM phase: 17 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 18: training on a (data, model) mesh at world size 1 on NCCL
+    # ((c), over four gloo ranks, ran with phase 11)
+    from repro_torch import make_mesh
+    t0 = time.perf_counter()
+    m1, _, store = start_nccl()
+    try:
+        m_dm = make_mesh((1, 1), ("data", "model"))
+        mesh_launches = phase_mesh_training(
+            label, "FFT-conv LM", fftconv_lm, planner, TRAIN_B, TRAIN_S,
+            fftconv_step, m_dm, single["FFT-conv LM"])
+        for kernel, n in phase_mesh_training(
+                label, "olmo-1b", olmo, None, OLMO_TRAIN_B, OLMO_TRAIN_S,
+                olmo_step, m_dm, single["olmo-1b"]).items():
+            mesh_launches[kernel] += n
+        sharded_grad_launches = phase_sharded_mixer_grad(label, planner,
+                                                         gen, m1)
+    finally:
+        dist.destroy_process_group()
+        del store
+        for res in single.values():
+            del res["params"]
+    print(f"LM phase: 18 took {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches in the counted run of every path: the N-D FFT
     # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving
     # (15), the other layer kinds served (16: none, checked there),
-    # training (17: the steps of both runs)
+    # training (17: the steps of both runs), training on the (1, 1) mesh
+    # (18 (a): the steps of both runs), the sharded mixer's forward and
+    # backward (18 (b))
     paths = {"nd_fft": launches, "mixer": mixer_launches,
              "fftconv_fused": fused_launches, "lm_serve": lm_launches,
-             "lm_kinds_serve": kind_launches, "lm_train": train_launches}
+             "lm_kinds_serve": kind_launches, "lm_train": train_launches,
+             "lm_train_mesh": mesh_launches,
+             "sharded_conv_grad": sharded_grad_launches}
 
     def counts(name):
         by_path = {path: c[name] for path, c in paths.items()}

@@ -16,9 +16,18 @@ A tree is a nested dict of tensors (the LM's parameters by name, the AdamW
 state), flattened to ``/``-joined keys. A dtype that numpy lacks
 (bfloat16) is stored as its raw 16-bit view and named in the manifest.
 ``restore`` rebuilds ``like``'s structure with each tensor in the dtype
-of ``like``'s, on ``like``'s device or the one it is given. The
-reference's re-sharding on restore (an elastic restart onto another
-mesh) waits for the port of ``parallel/``.
+of ``like``'s, on ``like``'s device or the one it is given.
+
+On a mesh (``mesh`` given) every rank calls ``save`` and ``restore``.
+``save`` takes a tree of this rank's blocks and a tree of shardings (each
+with ``gather(local) -> whole`` and ``shard(whole) -> local``, such as
+``parallel.NamedSharding``): each tensor is gathered whole and the mesh's
+rank (0, ..., 0) alone writes it, in the one-device format, so a mesh
+checkpoint restores on one device and the other way round. ``wait`` holds
+every rank until that rank's write has been renamed into place (and
+raises on every rank if it failed). ``restore(step, like, shardings)``
+cuts each whole tensor to this rank's block for the current mesh (the
+elastic restart onto another mesh).
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..core.comm import is_mesh_leader, mesh_max
 
 # dtypes numpy lacks, stored as a raw view of this integer dtype
 _RAW_VIEWS = {torch.bfloat16: torch.int16}
@@ -68,10 +79,21 @@ def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return t.numpy(), name
 
 
+def _leaf(tree: Optional[Dict[str, Any]], path: str):
+    """The entry of a nested dict at a ``/``-joined path, or None."""
+    for key in path.split("/"):
+        if tree is None:
+            return None
+        tree = tree.get(key)
+    return tree
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep_n: int = 3):
+    def __init__(self, directory: str, keep_n: int = 3, mesh=None):
         self.dir = directory
         self.keep_n = keep_n
+        self.mesh = mesh
+        self.writer = mesh is None or is_mesh_leader(mesh)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.save_seconds = 0.0
@@ -80,14 +102,22 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree: Dict[str, Any],
-             extra: Optional[Dict[str, Any]] = None) -> None:
+             extra: Optional[Dict[str, Any]] = None,
+             shardings: Optional[Dict[str, Any]] = None) -> None:
         """Copy ``tree`` to the host and write it as ``step`` in the
-        background."""
+        background; on a mesh, gather each tensor whole by its entry of
+        ``shardings`` (none: whole on every rank) first."""
         t0 = time.perf_counter()
         host, dtypes = {}, {}
         for key, t in _flatten(tree).items():
-            host[key], dtypes[key] = _to_host(t)
+            sh = _leaf(shardings, key)
+            if sh is not None:
+                t = sh.gather(t)
+            if self.writer:
+                host[key], dtypes[key] = _to_host(t)
         self.wait()                                             # one in flight
+        if not self.writer:
+            return
         self._thread = threading.Thread(
             target=self._write_logged, args=(step, host, dtypes, extra or {}),
             daemon=True)
@@ -131,10 +161,15 @@ class CheckpointManager:
                     pass
 
     def wait(self) -> None:
-        """Wait for the write in flight; raise what it raised."""
+        """Wait for the write in flight; raise what it raised. On a mesh
+        every rank waits for the writer's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None and \
+                mesh_max(self.mesh, float(self._error is not None)):
+            err, self._error = self._error, None
+            raise RuntimeError("the checkpoint write failed") from err
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("the checkpoint write failed") from err
@@ -155,11 +190,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Dict[str, Any], device=None):
+    def restore(self, step: int, like: Dict[str, Any],
+                shardings: Optional[Dict[str, Any]] = None, device=None):
         """(the tree saved at ``step`` in the structure of ``like``, each
         tensor in the dtype of ``like``'s and on ``device``, None: on
-        ``like``'s; the ``extra`` saved with it). A key, shape or dtype
-        that differs raises."""
+        ``like``'s; the ``extra`` saved with it). With ``shardings`` (the
+        structure of ``like``, None entries whole) ``like`` holds this
+        rank's blocks and each whole tensor is cut to its block
+        (re-sharding onto the current mesh). A key, shape or dtype that
+        differs raises."""
         path = self._path(step)
         with open(path + ".json") as f:
             man = json.load(f)
@@ -177,6 +216,9 @@ class CheckpointManager:
                 t = torch.from_numpy(data[key.replace("/", "\x1f")])
                 if stored in _RAW_VIEWS:
                     t = t.view(stored)
+                sh = _leaf(shardings, key)
+                if sh is not None:
+                    t = sh.shard(t)
                 if tuple(t.shape) != tuple(ref.shape):
                     raise ValueError(f"{key}: saved {tuple(t.shape)}, "
                                      f"restored into {tuple(ref.shape)}")

@@ -34,6 +34,10 @@ and the spectrum C[k1, k2] stays row-sharded in permuted order, so the
 pointwise product needs no global transpose; the inverse retraces the
 stages. Each rank passes its (B, L/p, D) block of the activations and the
 whole (D, L) filters, and gets back its (B, L/p, D) block of the output.
+Its backward is the same correlation on the same distributed transforms:
+the output gradient's block through the forward stages, the products with
+the saved spectra's conjugates, the inverse stages; the filters' gradient
+comes back whole on every rank.
 It works in (B, D, n1, n2) order, in which the (n1, n2/p) twiddle is a
 trailing block of the activations and the complex-multiply kernel reads
 it without expanding it.
@@ -50,6 +54,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
 from ..kernels.transpose import transpose
@@ -264,6 +269,74 @@ def _dist_ifft_permuted(x: Complex, group, p: int, me: int, n1: int, n2: int,
     return tuple(t.reshape(lead + (lloc,)) * scale for t in o)
 
 
+class _ShardedConv(torch.autograd.Function):
+    """``fft_conv_seq_sharded`` of this rank's (B, L/p, D) block and the
+    whole (D, L) filters, with its correlation backward on the same
+    distributed transforms (``ctx.spec``: the mesh, the axis and the
+    split, from ``fft_conv_seq_sharded``)."""
+
+    @staticmethod
+    def forward(ctx, u, k, spec):
+        group, p, me, w, slen = (spec["group"], spec["p"], spec["me"],
+                                 spec["w"], spec["slen"])
+        # this rank's blocks of the zero-padded sequences, (B, D, nf/p) and
+        # (D, nf/p): the filters are whole on every rank, so only u moves
+        up = reshard_last(transpose(u).float(), group, p, me, w, slen)
+        lo, hi = min(me * w, slen), min(me * w + w, slen)
+        kp = torch.nn.functional.pad(k[:, lo:hi].float(),
+                                     (0, w - (hi - lo)))
+        uf = _sharded_fft(spec, up)
+        kf = _sharded_fft(spec, kp)
+        y = _sharded_ifft(spec, complex_multiply(uf, kf))
+        ctx.spec, ctx.dtypes = spec, (u.dtype, k.dtype)
+        ctx.save_for_backward(*uf, *kf)
+        return transpose(y).to(u.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        spec, (u_dtype, k_dtype) = ctx.spec, ctx.dtypes
+        ur, ui, kr, ki = ctx.saved_tensors
+        group, p, me, w, slen = (spec["group"], spec["p"], spec["me"],
+                                 spec["w"], spec["slen"])
+        gf = _sharded_fft(spec, reshard_last(transpose(g).float(), group, p,
+                                             me, w, slen))
+        grad_u = grad_k = None
+        if ctx.needs_input_grad[0]:
+            y = _sharded_ifft(spec, complex_multiply(gf, _conj((kr, ki))))
+            grad_u = transpose(y).to(u_dtype)
+        if ctx.needs_input_grad[1]:
+            pr, pi = complex_multiply(gf, _conj((ur, ui)))
+            # this rank's block of the padded positions, then all of them
+            gk = _dist_ifft_permuted((pr.sum(0), pi.sum(0)), group, p, me,
+                                     spec["n1"], spec["n2"], spec["planner"],
+                                     spec["backend"])[0].contiguous()
+            parts = [torch.empty_like(gk) for _ in range(p)]
+            dist.all_gather(parts, gk, group=group)
+            grad_k = torch.cat(parts, -1)[:, :slen].contiguous()
+            for other in spec["others"]:
+                dist.all_reduce(grad_k, group=other)
+            grad_k = grad_k.to(k_dtype)
+        return grad_u, grad_k, None
+
+
+def _sharded_fft(spec, x: torch.Tensor) -> Complex:
+    """The distributed forward transform of real rows (..., nf/p)."""
+    return _dist_fft_permuted((x, torch.zeros_like(x)), spec["group"],
+                              spec["p"], spec["me"], spec["n1"], spec["n2"],
+                              -1, spec["planner"], spec["backend"])
+
+
+def _sharded_ifft(spec, z: Complex) -> torch.Tensor:
+    """The real part of the distributed inverse of a (B, D, nf/p) spectrum
+    block, cropped and moved back to this rank's (B, D, L/p) block."""
+    y = _dist_ifft_permuted(z, spec["group"], spec["p"], spec["me"],
+                            spec["n1"], spec["n2"], spec["planner"],
+                            spec["backend"])[0]
+    return reshard_last(y, spec["group"], spec["p"], spec["me"],
+                        spec["slen"] // spec["p"], spec["slen"])
+
+
 def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
                          planner: Optional[Planner] = None,
                          comm: CommSpec = "collective",
@@ -278,19 +351,19 @@ def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
     from the roofline, ``"measure"`` times the backends on the live mesh
     (verdict cached in the planner's wisdom). The zero padding to nf is one
     exchange in and one out (uneven all_to_alls; nothing at p = 1): rank r's
-    block of the padded sequence is not its block of ``u``."""
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(t) and t.requires_grad for t in (u, k)):
-        raise RuntimeError(
-            "fft_conv_seq_sharded has no backward: its exchanges record no "
-            "autograd, and its training waits for the port of parallel/ "
-            "(ROADMAP.md, Queue 1 item 7); run it under torch.no_grad()")
+    block of the padded sequence is not its block of ``u``.
+
+    Differentiable in ``u`` and ``k`` (the correlation of the module
+    docstring on the same distributed transforms): ``u``'s gradient is this
+    rank's (B, L/p, D) block; ``k``'s is the whole (D, L) gradient, the same
+    on every rank (each rank's block of positions all-gathered along
+    ``axis``; on a mesh of more axes summed over the others, which hold
+    other rows of the batch)."""
     planner = planner or Planner(backends=("torch",))
     dev = mesh_device(mesh)
     u = torch.as_tensor(u).to(dev)
     b, lloc, d = u.shape
     p, me = mesh_sizes(mesh)[axis], mesh.get_local_rank(axis)
-    group = mesh.get_group(axis)
     slen = lloc * p
     k = torch.as_tensor(k).to(dev)
     if tuple(k.shape) != (d, slen):
@@ -309,21 +382,9 @@ def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
     elif comm == "measure":
         comm = measure_comm_conv(b, d, n1, n2, mesh, axis,
                                  wisdom=planner.wisdom, hw=planner.hw)
-    backend = get_backend(comm, chunks=chunks)
-    w = nf // p
-
-    # this rank's blocks of the zero-padded sequences, (B, D, nf/p) and
-    # (D, nf/p): the filters are whole on every rank, so only u moves
-    up = reshard_last(transpose(u).float(), group, p, me, w, slen)
-    lo, hi = min(me * w, slen), min(me * w + w, slen)
-    kp = torch.nn.functional.pad(k[:, lo:hi].float(), (0, w - (hi - lo)))
-
-    uf = _dist_fft_permuted((up, torch.zeros_like(up)), group, p, me, n1,
-                            n2, -1, planner, backend)
-    kf = _dist_fft_permuted((kp, torch.zeros_like(kp)), group, p, me, n1,
-                            n2, -1, planner, backend)
-    prod = complex_multiply(uf, kf)
-    y = _dist_ifft_permuted(prod, group, p, me, n1, n2, planner,
-                            backend)[0]                  # real part
-    y = reshard_last(y, group, p, me, lloc, slen)        # (B, D, L/p)
-    return transpose(y).to(u.dtype)
+    spec = dict(group=mesh.get_group(axis), p=p, me=me, n1=n1, n2=n2,
+                w=nf // p, slen=slen, planner=planner,
+                backend=get_backend(comm, chunks=chunks),
+                others=[mesh.get_group(a) for a in mesh.mesh_dim_names
+                        if a != axis])
+    return _ShardedConv.apply(u, k, spec)

@@ -1,5 +1,5 @@
 """Synthetic, restartable training data (``repro.data``)."""
 
-from .pipeline import SyntheticDataset
+from .pipeline import SyntheticDataset, batch_specs
 
-__all__ = ["SyntheticDataset"]
+__all__ = ["SyntheticDataset", "batch_specs"]

@@ -4,19 +4,36 @@ deterministic and restartable.
 Every batch is a pure function of (seed, step), so the iterator's state is
 the step counter: a restart from a checkpoint resumes bit for bit. The
 batches are the reference's numpy arrays, bit for bit (the same numpy
-generator and calls). The reference's ``batch_specs`` and
-``sharded_batch_at`` (each process materialises its shard of the global
-batch) wait for the port of ``parallel/``.
+generator and calls). On a mesh each rank materialises its rows of the
+global batch (``sharded_batch_at``, laid out by ``batch_specs``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 
 from ..models.config import ArchConfig, ShapeConfig
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, rules: Dict) -> Dict:
+    """Specs for one batch (one mesh-axis entry per dim): the batch dim
+    over ``dp``."""
+    dp = rules.get("dp")
+    if shape.kind == "train" or shape.kind == "prefill":
+        if cfg.frontend:
+            specs = {"embeds": (dp, None, None), "labels": (dp, None)}
+        else:
+            specs = {"tokens": (dp, None), "labels": (dp, None)}
+        if cfg.rope == "mrope":
+            specs["positions"] = (None, dp, None)
+        return specs
+    # decode: one token per sequence
+    if cfg.frontend:
+        return {"embeds": (dp, None, None)}
+    return {"tokens": (dp, None)}
 
 
 @dataclasses.dataclass
@@ -57,4 +74,23 @@ class SyntheticDataset:
                                       (b, s_tok))
                 out["positions"] = np.broadcast_to(
                     pos[None], (3, b, s_tok)).copy()
+        return out
+
+    def sharded_batch_at(self, step: int, mesh,
+                         rules: Dict) -> Dict[str, np.ndarray]:
+        """This rank's block of ``batch_at(step)`` by ``batch_specs``: rank
+        r of the ``dp`` axes (row-major over a tuple) holds rows r*B/dp
+        onwards (of every M-RoPE position stream). A batch the ``dp`` ranks
+        do not divide raises."""
+        from ..parallel.rules import NamedSharding, mesh_shape
+        from ..models.params import axes_size
+        specs = batch_specs(self.cfg, self.shape, rules)
+        dp = axes_size(mesh_shape(mesh), rules.get("dp"))
+        if self.shape.global_batch % dp:
+            raise ValueError(f"a batch of {self.shape.global_batch} over "
+                             f"{dp} data ranks")
+        out: Dict[str, Any] = {}
+        for k, arr in self.batch_at(step).items():
+            out[k] = np.ascontiguousarray(
+                NamedSharding(mesh, specs[k]).shard(arr))
         return out

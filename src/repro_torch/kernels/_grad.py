@@ -3,8 +3,9 @@
 so that a caller who asked for gradients gets an error, not gradients that
 silently leave the kernel's op out. The CPU path runs plain PyTorch and is
 differentiable. A caller that needs gradients on the card goes through an
-op that carries its own backward: ``core.fftconv.fft_conv`` (and with it
-``FFTConvMixer``) is a ``torch.autograd.Function`` whose forward and
+op that carries its own backward: ``core.fftconv.fft_conv`` and
+``fft_conv_seq_sharded`` (and with them both branches of
+``FFTConvMixer``) are ``torch.autograd.Function``s whose forward and
 backward launch these kernels with autograd off.
 """
 

@@ -1,1 +1,2 @@
-"""Launchers of the port (so far the serving loop, ``launch.serve``)."""
+"""Launchers of the port: the serving loop (``launch.serve``), the trainer
+CLI (``launch.train``) and mesh construction (``launch.mesh``)."""

@@ -12,19 +12,29 @@ reference asks an einsum for float32 results of bfloat16 operands
 reference does and multiplies them in float32, which is exact for the
 products. The out-projections multiply in the compute dtype, which
 accumulates in float32 and rounds once, as the reference's float32 result
-cast back does; its ``reduce_dtype`` only changes the partial sums that
-cross devices and waits for the port of ``parallel/``, and so does
-the MoE's expert parallelism: on one device its dispatch is a scatter
-into (E, capacity, d) buffers and its combine a gather.
+cast back does.
+
+Tensor parallelism over the mesh's ``model`` axis (``TensorParallel``)
+covers attention (heads), the MLP (d_ff) and the FFT-conv mixer
+(channels): the LM holds each rank's block of the column- and row-sharded
+weights, a column-parallel input passes through ``CopyToRanks`` (identity,
+gradient summed over the axis) and a row-parallel output through
+``AllReduce`` (summed, gradient the identity), its partials cast to
+``_reduce_pe(cfg)`` first. The MoE runs each data rank's tokens as one of
+the reference's ``num_groups`` groups; its expert parallelism over
+``model`` is not ported yet: its dispatch is a scatter into (E, capacity,
+d) buffers and its combine a gather.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -35,6 +45,106 @@ from .config import ArchConfig
 from .params import ParamMeta, make_param
 
 Params = Mapping[str, torch.Tensor]
+
+
+def _reduce_pe(cfg: ArchConfig) -> torch.dtype:
+    """The dtype in which a tensor-parallel out-projection's partial sums
+    cross ranks: ``cfg.reduce_dtype``, else float32 (training keeps float32
+    partials; serving may opt into bfloat16, halving the wire bytes)."""
+    return getattr(torch, cfg.reduce_dtype) if cfg.reduce_dtype \
+        else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's "model" axis
+# ---------------------------------------------------------------------------
+
+
+class AllReduce(torch.autograd.Function):
+    """SUM over each process group of ``groups`` in turn; the backward is
+    the identity. The row-parallel side of tensor parallelism (each rank's
+    partial output summed) and the loss's sums over the data ranks."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.clone()
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class CopyToRanks(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over each group of
+    ``groups``: the column-parallel side, for a tensor whole on every rank
+    that each rank uses only in part."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+class GatherFromRanks(torch.autograd.Function):
+    """The whole tensor from each rank's block along ``dim`` (all-gather
+    over ``group``); the backward keeps this rank's block of the gradient,
+    for a whole tensor that every rank of the group uses alike."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        ctx.dim, ctx.n, ctx.me = dim, n, me
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, ctx.dim)[ctx.me].contiguous(), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """This rank's place on the mesh's ``model`` axis: its process group,
+    the axis's size and this rank's index on it."""
+    group: Any
+    size: int
+    rank: int
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return CopyToRanks.apply(x, (self.group,))
+
+    def reduce(self, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The sum of every rank's partial ``y``, summed in ``dtype``."""
+        return AllReduce.apply(y.to(dtype), (self.group,)).to(y.dtype)
+
+    def block(self, t: torch.Tensor, dim: int,
+              groups: int = 1) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim``; with ``groups`` the
+        dim is ``groups`` runs end to end and the block takes its share of
+        each (``w_in``'s v and gate columns)."""
+        t = t.unflatten(dim, (groups, -1))
+        t = t.chunk(self.size, dim + 1)[self.rank]
+        return t.flatten(dim, dim + 1)
+
+    def gather(self, t: torch.Tensor, dim: int,
+               groups: int = 1) -> torch.Tensor:
+        """The whole tensor from every rank's ``block`` (all-gather)."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        parts = [x.unflatten(dim, (groups, -1)) for x in parts]
+        return torch.cat(parts, dim + 1).flatten(dim, dim + 1)
+
 
 
 def _write_at(buf: torch.Tensor, u: torch.Tensor,
@@ -58,10 +168,10 @@ def _write_at(buf: torch.Tensor, u: torch.Tensor,
 def norm_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     d = cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": ParamMeta((d,), init="ones")}
+        return {"scale": ParamMeta((d,), (None,), init="ones")}
     if cfg.norm == "layernorm":
-        return {"scale": ParamMeta((d,), init="ones"),
-                "bias": ParamMeta((d,), init="zeros")}
+        return {"scale": ParamMeta((d,), (None,), init="ones"),
+                "bias": ParamMeta((d,), (None,), init="zeros")}
     return {}  # nonparam_ln (olmo): no learnable parameters
 
 
@@ -139,12 +249,16 @@ def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
 
 def attention_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    m = {"wq": ParamMeta((d, h, hd)), "wk": ParamMeta((d, kv, hd)),
-         "wv": ParamMeta((d, kv, hd)), "wo": ParamMeta((h, hd, d))}
+    m = {
+        "wq": ParamMeta((d, h, hd), ("fsdp", "tp", None)),
+        "wk": ParamMeta((d, kv, hd), ("fsdp", "tp", None)),
+        "wv": ParamMeta((d, kv, hd), ("fsdp", "tp", None)),
+        "wo": ParamMeta((h, hd, d), ("tp", None, "fsdp")),
+    }
     if cfg.qkv_bias:
-        m["bq"] = ParamMeta((h, hd), init="zeros")
-        m["bk"] = ParamMeta((kv, hd), init="zeros")
-        m["bv"] = ParamMeta((kv, hd), init="zeros")
+        m["bq"] = ParamMeta((h, hd), ("tp", None), init="zeros")
+        m["bk"] = ParamMeta((kv, hd), ("tp", None), init="zeros")
+        m["bv"] = ParamMeta((kv, hd), ("tp", None), init="zeros")
     return m
 
 
@@ -235,14 +349,46 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _heads_split(p: Params, cfg: ArchConfig,
+                 tp: Optional[TensorParallel]) -> bool:
+    """Whether this rank holds a block of the heads (tensor parallelism),
+    read off the local ``wq``; the rules leave heads whole where the axis
+    does not divide them."""
+    return tp is not None and p["wq"].shape[1] < cfg.num_heads
+
+
 def attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                  positions: torch.Tensor, cache: Optional[Dict] = None
+                  positions: torch.Tensor, cache: Optional[Dict] = None,
+                  tp: Optional[TensorParallel] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (output, updated cache). cache=None -> causal
     self-attention; else x's k/v are written into the cache's (B, S, KV,
-    hd) ``k``/``v`` at ``len`` (in place) and attended to up to it."""
+    hd) ``k``/``v`` at ``len`` (in place) and attended to up to it.
+
+    With ``tp`` and a block of the heads in ``p`` (``wq``, ``wk``, ``wv``
+    and the biases column-sharded, ``wo`` row-sharded over ``model``) each
+    rank attends with its heads and the partial outputs are summed in
+    ``_reduce_pe(cfg)``. K/V heads that the axis does not divide are whole
+    on every rank (the GQA case): each rank takes the K/V head of each of
+    its query heads, and their weights' gradients are summed over the
+    axis."""
     rope = rope_tables(cfg, positions)
+    split = _heads_split(p, cfg, tp)
+    if split:
+        if cache is not None:
+            raise NotImplementedError(
+                "decoding with tensor parallelism waits for the serve "
+                "profile (ROADMAP.md, Queue 1)")
+        x = tp.copy(x)
+        if p["wk"].shape[1] == cfg.num_kv_heads:        # K/V whole
+            p = {n: tp.copy(w) if n in ("wk", "wv", "bk", "bv") else w
+                 for n, w in p.items()}
     q, k, v = _qkv(p, cfg, x, rope)
+    if split and k.shape[2] == cfg.num_kv_heads:
+        hl = q.shape[2]
+        g = cfg.num_heads // cfg.num_kv_heads
+        idx = (tp.rank * hl + torch.arange(hl, device=x.device)) // g
+        k, v = k[:, :, idx], v[:, :, idx]
     if cache is None:
         out = flash_attention(q, k, v, causal=True)
     else:
@@ -251,7 +397,8 @@ def attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
         vc = _write_at(cache["v"], v, idx)
         out = decode_attention(q, kc, vc, idx + 1)
         cache = {"k": kc, "v": vc, "len": idx + 1}
-    return _out_proj(p, out), cache
+    y = _out_proj(p, out)
+    return (tp.reduce(y, _reduce_pe(cfg)) if split else y), cache
 
 
 # ---------------------------------------------------------------------------
@@ -261,20 +408,29 @@ def attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def mlp_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     d, f = cfg.d_model, cfg.d_ff
-    m = {"w_up": ParamMeta((d, f)), "w_down": ParamMeta((f, d))}
+    m = {"w_up": ParamMeta((d, f), ("fsdp", "tp")),
+         "w_down": ParamMeta((f, d), ("tp", "fsdp"))}
     if cfg.mlp_act == "silu":
-        m["w_gate"] = ParamMeta((d, f))
+        m["w_gate"] = ParamMeta((d, f), ("fsdp", "tp"))
     return m
 
 
-def mlp_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
+            tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """With ``tp`` and a block of d_ff in ``p`` (``w_up`` and ``w_gate``
+    column-sharded, ``w_down`` row-sharded), each rank's partial output is
+    summed over ``model`` in ``_reduce_pe(cfg)``."""
     dt = x.dtype
+    split = tp is not None and p["w_up"].shape[1] < cfg.d_ff
+    if split:
+        x = tp.copy(x)
     up = x @ p["w_up"].to(dt)
     if cfg.mlp_act == "silu":
         up = F.silu(x @ p["w_gate"].to(dt)) * up
     else:
         up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return up @ p["w_down"].to(dt)
+    down = up @ p["w_down"].to(dt)
+    return tp.reduce(down, _reduce_pe(cfg)) if split else down
 
 
 # ---------------------------------------------------------------------------
@@ -284,10 +440,12 @@ def mlp_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def moe_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    return {"router": ParamMeta((d, e), scale=0.02 / math.sqrt(d)),
-            "w_up": ParamMeta((e, d, f)),
-            "w_gate": ParamMeta((e, d, f)),
-            "w_down": ParamMeta((e, f, d))}
+    return {
+        "router": ParamMeta((d, e), (None, None), scale=0.02 / math.sqrt(d)),
+        "w_up": ParamMeta((e, d, f), ("expert", "moe_d", "moe_f")),
+        "w_gate": ParamMeta((e, d, f), ("expert", "moe_d", "moe_f")),
+        "w_down": ParamMeta((e, f, d), ("expert", "moe_f", "moe_d")),
+    }
 
 
 @contextlib.contextmanager
@@ -334,7 +492,8 @@ def moe_route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
 def moe_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, num_groups: int = 1
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out, float32 aux loss): the reference's GShard-style
-    grouped dispatch on one device.
+    grouped dispatch on one device (on a mesh, on each data rank's tokens:
+    ``LM.forward``).
 
     The B*S tokens split into ``num_groups`` groups (shrunk to a divisor)
     and are routed by ``moe_route``: a choice past its expert's capacity
@@ -386,10 +545,10 @@ def fftconv_meta(d_model: int, rank: int) -> Dict[str, ParamMeta]:
     """The reference's ``fftconv_meta(cfg)`` at ``cfg.d_model`` and
     ``cfg.fftconv_rank``."""
     d = d_model
-    return {"w_in": ParamMeta((d, 2 * d)),
-            "filt": ParamMeta((d, rank), scale=0.2),
-            "skip": ParamMeta((d,), init="ones"),
-            "w_out": ParamMeta((d, d))}
+    return {"w_in": ParamMeta((d, 2 * d), ("fsdp", "tp")),
+            "filt": ParamMeta((d, rank), (None, None), scale=0.2),
+            "skip": ParamMeta((d,), (None,), init="ones"),
+            "w_out": ParamMeta((d, d), ("tp", "fsdp"))}
 
 
 class FFTConvMixer(nn.Module):
@@ -401,10 +560,10 @@ class FFTConvMixer(nn.Module):
     (d, 2d) and ``w_out`` (d, d) normal with scale 0.02, ``filt`` (d, rank)
     normal with scale 0.2, ``skip`` (d,) ones. They are drawn from
     ``generator`` (a new one seeded 0 when None) on its own device, then
-    moved to ``device`` (None: the GPU). The unsharded forward pass is
-    differentiable on every device (``fft_conv`` carries its backward over
-    the port's kernels); the sharded branch has no backward yet and raises
-    under grad.
+    moved to ``device`` (None: the GPU). The forward pass is
+    differentiable on every device and in both branches (``fft_conv`` and
+    ``fft_conv_seq_sharded`` carry their backward over the port's
+    kernels).
 
     ``mesh`` and ``axis`` name the ``DeviceMesh`` axis the sequence is
     sharded over, and ``comm`` the exchange backend of the sharded
@@ -412,7 +571,16 @@ class FFTConvMixer(nn.Module):
     seq_axis_sharded=True)`` with a mesh takes this rank's (B, S/p, d)
     block of the sequence and returns its block of the output, on the
     mesh's device; as in the reference, without a mesh the flag is
-    ignored and the convolution runs on one device.
+    ignored and the convolution runs on one device. In the sharded branch
+    every parameter's gradient is the whole one on every rank (the
+    filters' through the sharded convolution's backward, the others summed
+    over the mesh), as GSPMD gives it in the reference.
+
+    ``tp`` (a ``TensorParallel``, set by the LM on a mesh with a ``model``
+    axis) makes the mixer channel-parallel: ``w_in`` holds this rank's
+    d/tp columns of v and of the gate, ``w_out`` its d/tp rows; each rank
+    convolves and gates its channels (``filt`` and ``skip`` sliced to
+    them) and the partial outputs are summed over ``model``.
     """
 
     def __init__(self, d_model: int, rank: int = 16,
@@ -425,6 +593,8 @@ class FFTConvMixer(nn.Module):
             raise ValueError("a mesh needs the axis the sequence is sharded "
                              "over")
         self.mesh, self.axis, self.comm = mesh, axis, comm
+        self.tp: Optional[TensorParallel] = None
+        self.reduce_dtype = torch.float32
         dev = resolve_device(device)
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
@@ -432,29 +602,56 @@ class FFTConvMixer(nn.Module):
         for name, meta in fftconv_meta(d_model, rank).items():
             setattr(self, name, nn.Parameter(make_param(meta, gen, dev)))
 
+    def _channels(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (d, ...) or, channel-parallel, this rank's d/tp rows, the
+        gradient summed over ``model``."""
+        if self.tp is None:
+            return t
+        return self.tp.block(self.tp.copy(t), 0)
+
     def project(self, x: torch.Tensor):
-        """(v, gate): ``x @ w_in`` split in two."""
+        """(v, gate): ``x @ w_in`` split in two (this rank's channels of
+        each when channel-parallel)."""
+        if self.tp is not None:
+            x = self.tp.copy(x)
         return (x @ self.w_in.to(x.dtype)).chunk(2, dim=-1)
+
+    def _whole_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, its gradient summed over every axis of the mesh."""
+        return CopyToRanks.apply(t, [self.mesh.get_group(a)
+                                     for a in self.mesh.mesh_dim_names])
 
     def forward(self, x: torch.Tensor,
                 seq_axis_sharded: bool = False) -> torch.Tensor:
-        return self.mix(*self.project(x), seq_axis_sharded=seq_axis_sharded)
+        if seq_axis_sharded and self.mesh is not None:
+            vg = x @ self._whole_grad(self.w_in).to(x.dtype)
+            return self.mix(*vg.chunk(2, dim=-1), seq_axis_sharded=True)
+        return self.mix(*self.project(x))
 
     def mix(self, v: torch.Tensor, gate: torch.Tensor,
             seq_axis_sharded: bool = False) -> torch.Tensor:
         """The mixer's output from its projection (``project``)."""
         dt = v.dtype
+        skip, w_out = self._channels(self.skip), self.w_out
         if seq_axis_sharded and self.mesh is not None:
+            if self.tp is not None:
+                raise NotImplementedError(
+                    "the sequence-sharded branch is not channel-parallel")
+            skip, w_out = self._whole_grad(skip), self._whole_grad(w_out)
             s = v.shape[1] * mesh_sizes(self.mesh)[self.axis]
             filt = materialize_filter(self.filt.float(), s)
             y = fft_conv_seq_sharded(v, filt, self.mesh, self.axis,
                                      planner=self.planner, comm=self.comm)
         else:
-            filt = materialize_filter(self.filt.float(), v.shape[1])
+            filt = materialize_filter(self._channels(self.filt).float(),
+                                      v.shape[1])
             y = fft_conv(v, filt, planner=self.planner, device=v.device)
-        y = y + v * self.skip.to(dt)
+        y = y + v * skip.to(dt)
         y = y * F.silu(gate)
-        return y @ self.w_out.to(dt)
+        y = y @ w_out.to(dt)
+        if self.tp is not None:
+            y = self.tp.reduce(y, self.reduce_dtype)
+        return y
 
     def decode(self, x: torch.Tensor, hist: torch.Tensor,
                pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -39,6 +39,16 @@ layer's input). Parameters stay float32 and are cast at each use, so a
 trainer never calls ``to_compute_dtype``. A ``shared_attn`` block's
 gradient is the sum over its places, as the reference's
 ``params["shared"]`` is.
+
+On a mesh (``LM.place``, which the ``Trainer`` calls) each rank holds its
+rows of the batch (the ``dp`` axes) and, where the rules shard a weight
+over ``model``, its block of it: attention heads, the MLP's d_ff and the
+FFT-conv mixer's channels run tensor-parallel (``blocks``), and the
+embedding and head, whose vocab the rules shard too, are gathered over
+``model`` on use. The loss is the global one on every rank
+(``loss_fn``); the MoE's groups are split among the data ranks. Tensor
+parallelism of the other layer kinds, and serving on a mesh, are not
+ported yet (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.plan import Planner, resolve_device
 from . import blocks, ssm
 from .config import ArchConfig
-from .params import ParamMeta, init_tree, make_param
+from .params import ParamMeta, init_tree, make_param, shard_act
 
 ATTENTION = ("attn_mlp", "attn_moe", "shared_attn")
 RECURRENT = tuple(ssm.MIXERS)
@@ -100,10 +110,13 @@ def model_meta(cfg: ArchConfig) -> Dict[str, Any]:
     empty one at each ``shared_attn`` place) and the shared block's once
     under ``shared``."""
     d, v = cfg.d_model, padded_vocab(cfg)
-    tree: Dict[str, Any] = {"embed": ParamMeta((v, d), scale=0.02),
-                            "final_norm": blocks.norm_meta(cfg)}
+    tree: Dict[str, Any] = {
+        "embed": ParamMeta((v, d), ("tp", "fsdp"), scale=0.02),
+        "final_norm": blocks.norm_meta(cfg),
+    }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ParamMeta((d, v), scale=0.02 / math.sqrt(d))
+        tree["lm_head"] = ParamMeta((d, v), ("fsdp", "tp"),
+                                    scale=0.02 / math.sqrt(d))
     kinds = [kind for kind, count in cfg.resolved_segments()
              for _ in range(count)]
     if "shared_attn" in kinds:
@@ -156,6 +169,7 @@ class Block(nn.Module):
                  planner: Optional[Planner]):
         super().__init__()
         self.cfg, self.kind = cfg, kind
+        self.tp: Optional[blocks.TensorParallel] = None
 
         def params(part):
             return nn.ParameterDict(init_tree(meta[part], generator, device))
@@ -175,20 +189,35 @@ class Block(nn.Module):
         else:
             self.mlp = params("mlp")
 
-    def _ffn(self, x: torch.Tensor):
+    def set_tensor_parallel(self, tp: Optional[blocks.TensorParallel]):
+        """Run this layer's attention, MLP or FFT-conv mixer over ``tp``'s
+        ``model`` axis (its parameters already hold this rank's blocks)."""
+        if tp is not None and self.kind not in ("attn_mlp", "fftconv_mlp"):
+            raise NotImplementedError(
+                f"tensor parallelism of {self.kind} layers waits for "
+                "ROADMAP.md, Queue 1 (expert placement of MoE over model; "
+                "tensor parallelism of shared_attn, mamba2, mlstm, slstm "
+                "and the frontends)")
+        self.tp = tp
+        if self.kind == "fftconv_mlp":
+            self.mix.tp = tp
+            self.mix.reduce_dtype = blocks._reduce_pe(self.cfg)
+
+    def _ffn(self, x: torch.Tensor, num_groups: int = 1):
         """x plus the MLP or MoE of its norm; (x, MoE aux loss or None)."""
         h2 = blocks.apply_norm(self.ln2, self.cfg, x)
         if self.kind == "attn_moe":
-            out, aux = blocks.moe_fwd(self.moe, self.cfg, h2)
+            out, aux = blocks.moe_fwd(self.moe, self.cfg, h2, num_groups)
             return x + out, aux
-        return x + blocks.mlp_fwd(self.mlp, self.cfg, h2), None
+        return x + blocks.mlp_fwd(self.mlp, self.cfg, h2, self.tp), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict] = None,
-                lens: Optional[torch.Tensor] = None):
+                lens: Optional[torch.Tensor] = None, num_groups: int = 1):
         """Without a cache the whole sequence; with this layer's decode
         cache (updated in place) and the sequences' lengths, one token.
-        Returns (x, the MoE aux loss or None)."""
+        ``num_groups``: the MoE's groups among these tokens. Returns (x,
+        the MoE aux loss or None)."""
         cfg = self.cfg
         if self.kind in RECURRENT:
             h = blocks.apply_norm(self.ln, cfg, x)
@@ -203,11 +232,12 @@ class Block(nn.Module):
                 return self._ffn(x + self.mix(h))
             return self._ffn(x + self.mix.decode(h, cache["v_hist"], lens)[0])
         lc = None if cache is None else {**cache, "len": lens}
-        out, _ = blocks.attention_fwd(self.attn, cfg, h, positions, lc)
+        out, _ = blocks.attention_fwd(self.attn, cfg, h, positions, lc,
+                                      self.tp)
         if cfg.parallel_block:
             # command-r: attention and FFN in parallel off one norm
-            return x + out + blocks.mlp_fwd(self.mlp, cfg, h), None
-        return self._ffn(x + out)
+            return x + out + blocks.mlp_fwd(self.mlp, cfg, h, self.tp), None
+        return self._ffn(x + out, num_groups)
 
     def prefill(self, x: torch.Tensor, rope, pad: int):
         """The prompt through this layer, and the layer's decode cache:
@@ -232,6 +262,19 @@ class Block(nn.Module):
             x = x + blocks._out_proj(self.attn, out)
             cache = {"k": _pad_seq(k, pad), "v": _pad_seq(v, pad)}
         return self._ffn(x)[0], cache
+
+
+def _flat(tree, prefix: str = "") -> Dict[str, Any]:
+    """A tree of dicts and lists by the LM's ``/``-free parameter names
+    (``layers.<i>.<part>.<name>``)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out: Dict[str, Any] = {}
+    for key, value in items:
+        if isinstance(value, (dict, list)):
+            out.update(_flat(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
 
 
 def _remat(layer: Block, cfg: ArchConfig):
@@ -262,7 +305,8 @@ class LM(nn.Module):
 
     ``forward`` is differentiable on every device (``loss_fn`` is the
     training loss); ``prefill`` and ``decode_step`` run under
-    ``torch.no_grad()``. Batches are ``{"tokens": (B, S) int}`` or ``{"embeds":
+    ``torch.no_grad()``. ``place`` lays it out on a mesh.
+    Batches are ``{"tokens": (B, S) int}`` or ``{"embeds":
     (B, S, d)}`` (a frontend's output), with optional ``"positions"``: (B,
     S), or (3, B, S) M-RoPE streams (whose first is the sinusoid's where
     ``rope`` is ``"none"``).
@@ -299,6 +343,64 @@ class LM(nn.Module):
         if cfg.param_dtype != "float32":
             # the reference draws each normal in float32 and casts it
             self.to(getattr(torch, cfg.param_dtype))
+        # one device until ``place``
+        self.mesh, self.rules = None, {}
+        self.tp: Optional[blocks.TensorParallel] = None
+        self.dp_groups: List[Any] = []
+        self.dp_size = 1
+
+    def place(self, mesh, rules: Dict[str, Any],
+              meta: Optional[Dict[str, Any]] = None) -> "LM":
+        """Lay this whole LM out on ``mesh`` by ``rules``
+        (``parallel.make_rules``), in place: its data-parallel axes
+        (``dp``), and over ``model`` each parameter the sanitized rules
+        shard cut to this rank's block (``tp_layouts``). With rules that
+        name no axis everything stays whole."""
+        if self.mesh is not None:
+            raise ValueError("the LM is already laid out on a mesh")
+        meta = meta if meta is not None else model_meta(self.cfg)
+        self.mesh, self.rules = mesh, dict(rules)
+        from ..parallel.rules import mesh_shape
+        sizes = mesh_shape(mesh)
+        dp = self.rules.get("dp")
+        for ax in (dp if isinstance(dp, tuple) else (dp,) if dp else ()):
+            self.dp_groups.append(mesh.get_group(ax))
+            self.dp_size *= sizes[ax]
+        if sizes.get("model", 1) > 1 and self.rules.get("tp") == "model":
+            if self.cfg.frontend:
+                raise NotImplementedError(
+                    "tensor parallelism of the frontends waits for "
+                    "ROADMAP.md, Queue 1")
+            self.tp = blocks.TensorParallel(mesh.get_group("model"),
+                                            sizes["model"],
+                                            mesh.get_local_rank("model"))
+            for layer in self.layers:
+                layer.set_tensor_parallel(self.tp)
+        layouts = self.tp_layouts(meta)
+        with torch.no_grad():
+            for name, param in self.named_parameters():
+                if layouts[name] is not None:
+                    param.data = self.tp.block(param.data,
+                                               *layouts[name]).clone()
+        return self
+
+    def tp_layouts(self, meta: Optional[Dict[str, Any]] = None):
+        """``{parameter name: (dim, groups) or None}``: the dim the
+        sanitized rules shard over ``model`` on this LM's mesh (None: whole
+        on every rank), and the number of end-to-end runs it holds
+        (``w_in``'s v and gate: 2; see ``TensorParallel.block``)."""
+        from ..parallel.rules import logical_shardings
+        meta = meta if meta is not None else model_meta(self.cfg)
+        if self.mesh is None:
+            return {name: None for name in _flat(meta)}
+        out = {}
+        for name, sh in _flat(logical_shardings(
+                self.mesh, meta, self.rules)).items():
+            dim = next((i for i, ax in enumerate(sh.spec) if ax == "model"),
+                       None)
+            out[name] = (None if self.tp is None or dim is None
+                         else (dim, 2 if name.endswith("mix.w_in") else 1))
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -325,6 +427,13 @@ class LM(nn.Module):
                 p.data = p.data.to(self.dtype)
         return self
 
+    def _whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """The embedding or head ``w``, gathered over ``model`` where this
+        rank holds a block of its vocab (its gradient: this rank's block)."""
+        if self.tp is None or w.shape[dim] == padded_vocab(self.cfg):
+            return w
+        return blocks.GatherFromRanks.apply(w, self.tp.group, dim)
+
     def _inputs(self, batch: Dict[str, torch.Tensor],
                 positions: Optional[torch.Tensor] = None):
         """(x in the compute dtype, positions): the batch's tokens embedded
@@ -334,7 +443,7 @@ class LM(nn.Module):
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            x = self.embed[batch["tokens"]].to(self.dtype)
+            x = self._whole(self.embed, 0)[batch["tokens"]].to(self.dtype)
         if positions is None:
             positions = batch.get("positions")
         if positions is None:
@@ -347,17 +456,33 @@ class LM(nn.Module):
         return x, positions
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        head = (self._whole(self.embed, 0).T if self.cfg.tie_embeddings
+                else self._whole(self.lm_head, 1))
         return x @ head.to(self.dtype)
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
+    def _local_groups(self, num_groups: int) -> int:
+        """The MoE groups among this rank's tokens: on a mesh each data
+        rank's rows are ``num_groups / dp`` of the reference's groups."""
+        if num_groups % self.dp_size:
+            raise ValueError(f"{num_groups} MoE groups over {self.dp_size} "
+                             "data ranks")
+        return num_groups // self.dp_size
+
+    def forward(self, batch: Dict[str, torch.Tensor], num_groups: int = 1):
         """Returns (logits (B, S, V) in the compute dtype, the float32 MoE
         aux loss summed over the layers). With ``cfg.remat`` and autograd
-        on, each layer is recomputed in the backward pass (``_remat``)."""
+        on, each layer is recomputed in the backward pass (``_remat``).
+        ``num_groups``: the MoE's token groups (the reference's; on a mesh,
+        over all data ranks: this rank's batch is its ``num_groups / dp``
+        groups, and its aux loss their mean)."""
+        local = self._local_groups(num_groups) if any(
+            layer.kind == "attn_moe" for layer in self.layers) else 1
         x, positions = self._inputs(batch)
+        x = shard_act(x, "dp", None, None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, layer_aux = _remat(layer, self.cfg)(x, positions)
+            x, layer_aux = _remat(layer, self.cfg)(x, positions,
+                                                  num_groups=local)
             if layer_aux is not None:
                 aux = aux + layer_aux
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
@@ -372,6 +497,7 @@ class LM(nn.Module):
         true prompt end when the input is right-padded to a length
         bucket; a recurrent layer's state is the one after the whole
         input, pads included."""
+        self._serving_check()
         x, positions = self._inputs(batch)
         bsz, s = x.shape[:2]
         pad = max_len - s
@@ -395,6 +521,12 @@ class LM(nn.Module):
             cache_len = last_index.to(torch.int32) + 1
         logits = _mask_pad_vocab(self.cfg, self._logits(x_last).float())
         return logits, {"len": cache_len, "layers": caches}
+
+    def _serving_check(self) -> None:
+        if self.tp is not None:
+            raise NotImplementedError(
+                "serving with tensor parallelism waits for the serve "
+                "profile (ROADMAP.md, Queue 1)")
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         """An empty decode cache of ``batch`` sequences of ``max_len``."""
@@ -421,6 +553,7 @@ class LM(nn.Module):
         ``{"embeds": (B, 1, d)}``, at position ``len``; returns (float32
         logits (B, 1, V), the cache, updated in place, with ``len`` one
         longer)."""
+        self._serving_check()
         lens = cache["len"]
         x, positions = self._inputs(batch, lens[:, None])       # (B, 1)
         for layer, c in zip(self.layers, cache["layers"]):
@@ -440,16 +573,23 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return LM(cfg, planner=planner, device=device, generator=generator)
 
 
-def forward(model: LM, batch: Dict[str, torch.Tensor]):
-    return model(batch)
+def forward(model: LM, batch: Dict[str, torch.Tensor], num_groups: int = 1):
+    return model(batch, num_groups)
 
 
-def loss_fn(model: LM, batch: Dict[str, torch.Tensor]):
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor], num_groups: int = 1):
     """(loss, {"nll", "aux"}): the mean next-token negative log-likelihood
     over the labels >= 0 of ``batch["labels"]`` (B, S), plus 0.01 times the
-    MoE aux loss. The reference's memory-lean cross-entropy, step by step:
-    no (B, S, V) one-hot, the float32 cast inside the reductions."""
-    logits, aux = model(batch)
+    MoE aux loss (``num_groups``: the MoE's groups, ``LM.forward``). The
+    reference's memory-lean cross-entropy, step by step: no (B, S, V)
+    one-hot, the float32 cast inside the reductions.
+
+    On a mesh ``batch`` is this rank's rows and the loss is the global one,
+    the same on every rank: the masked sum, the mask count and the aux
+    loss are summed over the data ranks (``blocks.AllReduce``, whose
+    gradient is the identity), so that each rank's backward yields its
+    share of the global gradient and the shares sum to it."""
+    logits, aux = model(batch, num_groups)
     labels = batch["labels"].long()
     m = logits.amax(-1).float()
     shifted = logits.float() - m[..., None]
@@ -457,7 +597,13 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor]):
     label_logit = torch.take_along_dim(
         logits, labels.clamp(min=0)[..., None], dim=-1)[..., 0].float()
     mask = (labels >= 0).float()
-    nll = ((logz - label_logit) * mask).sum() / mask.sum().clamp(min=1.0)
+    total, count = ((logz - label_logit) * mask).sum(), mask.sum()
+    if model.dp_size > 1:
+        groups = model.dp_groups
+        total = blocks.AllReduce.apply(total, groups)
+        count = blocks.AllReduce.apply(count, groups)
+        aux = blocks.AllReduce.apply(aux, groups) / model.dp_size
+    nll = total / count.clamp(min=1.0)
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}
 

@@ -111,13 +111,13 @@ def mamba2_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     di, nh, n = mamba2_dims(cfg)
     kc = cfg.conv_kernel
     return {
-        "in_proj": ParamMeta((d, 2 * di + 2 * n + nh)),
-        "conv_w": ParamMeta((di + 2 * n, kc), scale=0.5),
-        "a_log": ParamMeta((nh,), init="zeros"),
-        "dt_bias": ParamMeta((nh,), init="zeros"),
-        "d_skip": ParamMeta((nh,), init="ones"),
-        "norm": ParamMeta((di,), init="ones"),
-        "out_proj": ParamMeta((di, d)),
+        "in_proj": ParamMeta((d, 2 * di + 2 * n + nh), ("fsdp", "tp")),
+        "conv_w": ParamMeta((di + 2 * n, kc), ("tp", None), scale=0.5),
+        "a_log": ParamMeta((nh,), ("tp",), init="zeros"),
+        "dt_bias": ParamMeta((nh,), ("tp",), init="zeros"),
+        "d_skip": ParamMeta((nh,), ("tp",), init="ones"),
+        "norm": ParamMeta((di,), (None,), init="ones"),
+        "out_proj": ParamMeta((di, d), ("tp", "fsdp")),
     }
 
 
@@ -215,16 +215,16 @@ def mlstm_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     h = cfg.num_heads
     dh = du // h
     return {
-        "w_up": ParamMeta((d, du)),
-        "w_gate": ParamMeta((d, du)),
-        "wq": ParamMeta((h, dh, dh)),
-        "wk": ParamMeta((h, dh, dh)),
-        "wi": ParamMeta((d, h), scale=0.01),
-        "wf": ParamMeta((d, h), scale=0.01),
-        "bi": ParamMeta((h,), init="zeros"),
-        "bf": ParamMeta((h,), init="ones", scale=3.0),
-        "norm": ParamMeta((du,), init="ones"),
-        "w_down": ParamMeta((du, d)),
+        "w_up": ParamMeta((d, du), ("fsdp", "tp")),
+        "w_gate": ParamMeta((d, du), ("fsdp", "tp")),
+        "wq": ParamMeta((h, dh, dh), ("tp", None, None)),
+        "wk": ParamMeta((h, dh, dh), ("tp", None, None)),
+        "wi": ParamMeta((d, h), ("fsdp", "tp"), scale=0.01),
+        "wf": ParamMeta((d, h), ("fsdp", "tp"), scale=0.01),
+        "bi": ParamMeta((h,), ("tp",), init="zeros"),
+        "bf": ParamMeta((h,), ("tp",), init="ones", scale=3.0),
+        "norm": ParamMeta((du,), (None,), init="ones"),
+        "w_down": ParamMeta((du, d), ("tp", "fsdp")),
     }
 
 
@@ -295,10 +295,11 @@ def slstm_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     h = cfg.slstm_heads
     dh = d // h
     return {
-        "w_gates": ParamMeta((d, 4, h, dh)),
-        "r_gates": ParamMeta((4, h, dh, dh), scale=0.01),
-        "b_gates": ParamMeta((4, h, dh), init="zeros"),
-        "w_out": ParamMeta((d, d)),
+        "w_gates": ParamMeta((d, 4, h, dh), ("fsdp", None, "tp", None)),
+        "r_gates": ParamMeta((4, h, dh, dh), (None, "tp", None, None),
+                             scale=0.01),
+        "b_gates": ParamMeta((4, h, dh), (None, "tp", None), init="zeros"),
+        "w_out": ParamMeta((d, d), ("fsdp", "tp")),
     }
 
 

@@ -13,9 +13,26 @@
   the checkpoint at that step, a simulated SIGTERM for the restart tests.
 
 The model is an ``LM`` on one device (``device=None``: the GPU, which
-raises without one); its parameters stay float32 and are cast at each use.
-The reference's meshes, sharding rules and elastic restore wait for the
-port of ``parallel/`` (ROADMAP.md, Queue 1 item 7).
+raises without one), or on a ``DeviceMesh`` with axes ``data`` and
+``model`` (and ``pod``), every rank of it running the trainer:
+
+* ``rules = make_rules(mesh)``; the MoE's groups are the ``dp`` ranks;
+* tensor parallelism first: the LM keeps each rank's block of the weights
+  the sanitized rules shard over ``model`` (``LM.place``);
+* then each layer and the root go under FSDP2's ``fully_shard`` over the
+  ``dp`` ranks: ZeRO-3, what the reference's ``fsdp`` rule does. FSDP2
+  cuts each parameter along its first dim (the reference's rule names a
+  dim per parameter; either way every parameter, gradient and moment is
+  1/dp a rank). Gradients are summed over the data ranks (each rank's
+  loss is its share of the global one, ``lm.loss_fn``);
+* the AdamW moments are each rank's blocks (``opt_meta``: sharded like
+  their parameters), updated in place on the local blocks;
+* each step reads this rank's rows (``sharded_batch_at``);
+* checkpoints gather every tensor whole and one rank writes them in the
+  one-device format; a restore cuts them for the current mesh, whatever
+  mesh (or device) wrote them.
+
+Parameters stay float32 and are cast at each use.
 """
 
 from __future__ import annotations
@@ -29,11 +46,16 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
+from ..core.comm import mesh_device
 from ..core.plan import Planner, resolve_device
 from ..data import SyntheticDataset
+from ..models.blocks import TensorParallel
 from ..models.config import ArchConfig, ShapeConfig
-from ..models.lm import LM, loss_fn
+from ..models.lm import LM, loss_fn, model_meta
+from ..models.params import axes_size
 from ..optim import AdamWConfig, adamw_init, adamw_update
+from ..optim.adamw import local
+from ..parallel import make_rules, mesh_shape
 
 
 @dataclasses.dataclass
@@ -47,6 +69,64 @@ class TrainerConfig:
     # microbatches and sum their gradients: the numerics of one big batch
     # at 1/n the activation memory
     grad_accum: int = 1
+
+
+class MeshLayout:
+    """Where a parameter (or its moment) lives on the trainer's mesh: a
+    block over ``model`` (``tp`` and the LM's ``(dim, groups)`` layout, or
+    None) cut further by FSDP2 over the data ranks (``ref``: the
+    parameter's DTensor). ``gather`` and ``shard`` are the checkpoint's
+    (``CheckpointManager.save``/``restore``)."""
+
+    def __init__(self, ref: torch.Tensor, tp: Optional[TensorParallel],
+                 layout):
+        self.ref, self.tp, self.layout = ref, tp, layout
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        if hasattr(self.ref, "device_mesh"):
+            t = _gather_rows(local(t), self.ref)
+        if self.layout is not None:
+            t = self.tp.gather(t, *self.layout)
+        return t
+
+    def shard(self, whole: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import distribute_tensor
+        t = whole.to(local(self.ref).device)
+        if self.layout is not None:
+            t = self.tp.block(t, *self.layout)
+        if not hasattr(self.ref, "device_mesh"):
+            return t
+        return distribute_tensor(t.contiguous(), self.ref.device_mesh,
+                                 self.ref.placements,
+                                 src_data_rank=None).to_local()
+
+
+def _gather_rows(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's FSDP2 block
+    (``ref``: a DTensor laid out the same, sharded by rows over a 1-D mesh
+    in ``torch.chunk``'s blocks), by the c10d all-gather: DTensor's
+    ``full_tensor`` crashes on gloo with CUDA tensors (torch 2.11)."""
+    from torch.distributed.tensor import Shard
+    if tuple(ref.placements) != (Shard(0),):
+        raise ValueError(f"FSDP2 blocks laid out as {ref.placements}")
+    group = ref.device_mesh.get_group()
+    ranks, n = torch.distributed.get_world_size(group), ref.shape[0]
+    rows = -(-n // ranks)
+    block = t.new_zeros((rows,) + tuple(t.shape[1:]))
+    block[:t.shape[0]] = t.detach()
+    parts = [torch.empty_like(block) for _ in range(ranks)]
+    torch.distributed.all_gather(parts, block, group=group)
+    return torch.cat(parts)[:n]
+
+
+def _dp_mesh(mesh, rules: Dict[str, Any]):
+    """The sub-mesh of the ``dp`` axes (one dim; two flattened)."""
+    dp = rules.get("dp")
+    if dp is None:
+        return None
+    if isinstance(dp, str):
+        return mesh[dp]
+    return mesh[dp]._flatten("_".join(dp))
 
 
 def _copy_into(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
@@ -64,25 +144,40 @@ class Trainer:
     checkpoint exists (tests start from the reference's weights), and are
     trained in place; without them the LM is drawn from
     ``torch.Generator().manual_seed(tcfg.seed)`` and the moments are zero.
-    ``planner`` is handed to the FFT-conv layers. ``mesh`` must be None."""
+    ``planner`` is handed to the FFT-conv layers.
+
+    ``mesh``: None (one device), or a ``DeviceMesh`` (``launch.mesh``) on
+    which every rank of it builds a trainer; the device is then the
+    mesh's. A ``model`` given is whole (the same on every rank) and is
+    laid out on the mesh, and so is ``opt_state``."""
 
     def __init__(self, arch: ArchConfig, shape: ShapeConfig, mesh,
                  tcfg: TrainerConfig, ocfg: Optional[AdamWConfig] = None,
                  device=None, planner: Optional[Planner] = None,
                  model: Optional[LM] = None,
                  opt_state: Optional[Dict[str, Any]] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training on a mesh waits for the port of parallel/ "
-                "(ROADMAP.md, Queue 1 item 7)")
+        from torch.distributed.device_mesh import DeviceMesh
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"a mesh is a DeviceMesh (launch.mesh), not "
+                            f"{type(mesh).__name__}")
         self.arch = arch
         self.shape = shape
+        self.mesh = mesh
         self.tcfg = tcfg
         self.ocfg = ocfg or AdamWConfig()
+        self.rules = make_rules(mesh) if mesh is not None else {}
+        if mesh is not None and device is None:
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         self.planner = planner
+        self.meta = model_meta(arch)
+        # the MoE's groups: the data ranks
+        self.num_groups = axes_size(mesh_shape(mesh), self.rules.get(
+            "dp")) if mesh is not None else 1
         self.data = SyntheticDataset(arch, shape, seed=tcfg.seed)
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep_n=tcfg.keep_n)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep_n=tcfg.keep_n,
+                                      mesh=mesh)
+        self.shardings = self.shard_groups = None
         self.straggler_events = []
         self._ewma = None
         self._model, self._opt_state = model, opt_state
@@ -100,13 +195,51 @@ class Trainer:
         model.to(self.device)
         if self.planner is not None:
             model.planner = self.planner
+        if self.mesh is not None:
+            self._shard(model)
+        params = dict(model.named_parameters())
         if self._opt_state is None:
-            return model, adamw_init(dict(model.named_parameters())), 0
+            return model, adamw_init(params), 0
         given = self._opt_state
-        opt_state = {m: {n: t.to(self.device) for n, t in given[m].items()}
+        opt_state = {m: {n: self._block(given[m][n], m, n).to(self.device)
+                         for n in params}
                      for m in ("mu", "nu")}
         opt_state["step"] = given["step"].to(self.device)
         return model, opt_state, 0
+
+    def _block(self, whole: torch.Tensor, part: str, name: str):
+        if self.shardings is None:
+            return whole
+        return self.shardings["opt"][part][name].shard(whole)
+
+    def _shard(self, model: LM) -> None:
+        """Lay ``model`` out on the mesh: tensor parallelism, then FSDP2
+        over the dp ranks, every layer and then the root (the shared block
+        of zamba2 with the root: it runs at several places)."""
+        from torch.distributed.fsdp import fully_shard
+        model.place(self.mesh, self.rules, self.meta)
+        layouts = model.tp_layouts(self.meta)
+        dp_mesh = _dp_mesh(self.mesh, self.rules)
+        self.shard_groups = {}
+        if dp_mesh is not None:
+            modules = [layer for layer in dict.fromkeys(model.layers)
+                       if layer is not model.shared] + [model]
+            for module in modules:
+                fully_shard(module, mesh=dp_mesh)
+            for module in modules:
+                # each rank's loss is its share: sum, do not average
+                module.set_gradient_divide_factor(1.0)
+                module.set_force_sum_reduction_for_comms(True)
+        dp_groups = [g for g in model.dp_groups
+                     if torch.distributed.get_world_size(g) > 1]
+        params = dict(model.named_parameters())
+        sh = {}
+        for name, p in params.items():
+            sh[name] = MeshLayout(p, model.tp, layouts[name])
+            self.shard_groups[name] = (
+                (dp_groups if dp_mesh is not None else [])
+                + ([model.tp.group] if layouts[name] is not None else []))
+        self.shardings = {"params": sh, "opt": {"mu": sh, "nu": sh}}
 
     def restore_or_init(self):
         """(model, AdamW state, the data step to go on from): the latest
@@ -115,8 +248,12 @@ class Trainer:
         step = self.ckpt.latest_step()
         if step is None:
             return model, opt_state, 0
-        tree = {"params": dict(model.named_parameters()), "opt": opt_state}
-        restored, extra = self.ckpt.restore(step, tree, device="cpu")
+        tree = {"params": {n: local(p) for n, p in model.named_parameters()},
+                "opt": opt_state}
+        if self.shardings is None:
+            restored, extra = self.ckpt.restore(step, tree, device="cpu")
+        else:
+            restored, extra = self.ckpt.restore(step, tree, self.shardings)
         with torch.no_grad():
             _copy_into(tree, restored)
         return model, opt_state, extra.get("data_step", step)
@@ -124,15 +261,17 @@ class Trainer:
     def save(self, step: int, model: LM, opt_state: Dict[str, Any]) -> None:
         self.ckpt.save(step, {"params": dict(model.named_parameters()),
                               "opt": opt_state},
-                       extra={"data_step": step})
+                       extra={"data_step": step}, shardings=self.shardings)
 
     # -- one step -----------------------------------------------------------
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        """The dataset's batch of ``step`` as tensors on the device (token
-        ids and labels as int64)."""
+        """The dataset's batch of ``step`` (this rank's rows on a mesh) as
+        tensors on the device (token ids and labels as int64)."""
         out = {}
-        for name, a in self.data.batch_at(step).items():
+        batch = (self.data.batch_at(step) if self.mesh is None else
+                 self.data.sharded_batch_at(step, self.mesh, self.rules))
+        for name, a in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(a))
             if name in ("tokens", "labels"):
                 t = t.long()
@@ -160,12 +299,12 @@ class Trainer:
         params = dict(model.named_parameters())
         model.zero_grad(set_to_none=True)
         if accum == 1:
-            loss, metrics = loss_fn(model, batch)
+            loss, metrics = loss_fn(model, batch, self.num_groups)
             loss.backward()
         else:
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
             for micro in self._microbatches(batch):
-                micro_loss, _ = loss_fn(model, micro)
+                micro_loss, _ = loss_fn(model, micro, self.num_groups)
                 micro_loss.backward()           # sums into .grad
                 loss = loss + micro_loss.detach()
             scale = 1.0 / accum
@@ -177,8 +316,9 @@ class Trainer:
             metrics = {"nll": loss, "aux": torch.zeros_like(loss)}
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
-        _, opt_state, opt_metrics = adamw_update(self.ocfg, grads, params,
-                                                 opt_state)
+        _, opt_state, opt_metrics = adamw_update(
+            self.ocfg, grads, params, opt_state,
+            self.shard_groups)
         model.zero_grad(set_to_none=True)
         metrics = {k: v.detach() for k, v in
                    dict(metrics, loss=loss, **opt_metrics).items()}

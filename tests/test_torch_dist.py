@@ -21,7 +21,11 @@ check_rfft3_pencil, check_fftconv_seq_sharded, check_compressed_psum,
 check_plan_nd, check_plan_nd_generalized). The deprecated shims, the
 sequence-sharded convolution, the compressed all-reduce and the mixer's
 sharded branch have tables of their own (``SHIMS``, ``CONVS``, ``PSUMS``,
-``MIXERS``). JAX is imported only by the reference's run and the fixture,
+``MIXERS``); the gradients of the sharded convolution (against the
+reference's ``jax.grad`` through its ``fft_conv_seq_sharded`` and the
+port's unsharded ``fft_conv``) and of the mixer's sharded branch (against
+the unsharded mixer) run on the meshes of ``GRADS``, within 2e-4 of
+max|ref|. JAX is imported only by the reference's run and the fixture,
 never by the gloo ranks; torch only by the port's run.
 """
 
@@ -180,6 +184,17 @@ PSUMS = ("collective", "pipelined:2", "agas", "measure", "auto")
 # the FFT-conv mixer's sharded branch: (2, 64, 8), rank-4 filters
 MIXER = dict(b=2, length=64, d=8, rank=4)
 MIXERS = ("m2", "m4")
+
+# gradients of the sharded convolution (CONV's inputs) and of the mixer's
+# sharded branch (MIXER's), on 2 and 4 ranks
+GRADS = ("m2", "m4")
+GRAD_TOL = 2e-4
+
+
+def grad_weights(shape, name):
+    """The output's cotangent: the gradient of sum(y * w)."""
+    rng = np.random.default_rng(_seed("grad_" + name))
+    return rng.standard_normal(shape).astype(np.float32)
 
 
 def conv_inputs():
@@ -351,6 +366,17 @@ def _ref_extras(out, planner):
                 lambda a: fftconv_fwd(params, None, a,
                                       seq_axis_sharded=True))(x))
 
+    u, k = conv_inputs()
+    w = grad_weights(u.shape, "conv")
+    for name in GRADS:
+        mg = _jax_mesh(name)
+        axis = MESHES[name][1][0]
+        gu, gk = jax.jit(jax.grad(
+            lambda a, b, mg=mg, axis=axis: (fftconv.fft_conv_seq_sharded(
+                a, b, mg, axis, planner) * w).sum(), argnums=(0, 1)))(u, k)
+        out["conv_grad/" + name + "/u"] = np.asarray(gu)
+        out["conv_grad/" + name + "/k"] = np.asarray(gk)
+
 
 # ---------------------------------------------------------------------------
 # the port's run (8 gloo ranks)
@@ -463,6 +489,7 @@ def _port_rank(rank, store_path, out_path, hw_json):
         out[f"gather/{spec}"] = _pair(g)
 
     _port_extras(rank, meshes, hw, out, meta)
+    _port_grads(rank, meshes, out)
 
     # every rank's verdicts (free and measured plans, measured exchanges),
     # gathered to rank 0
@@ -637,6 +664,60 @@ def _port_extras(rank, meshes, hw, out, meta):
             out["mixer/" + name] = _gathered(y, mesh, [(1, axis)])
             out["mixer/" + name + "/local"] = mixer(
                 torch.from_numpy(x)).numpy()
+
+
+def _port_grads(rank, meshes, out):
+    """The gradients of the sharded convolution and of the mixer's sharded
+    branch on this rank's blocks, gathered, beside the unsharded ones."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch.convert import fftconv_mixer_from_reference
+    planner = rt.Planner(backends=("torch",), device="cpu")
+    u, k = conv_inputs()
+    w = grad_weights(u.shape, "conv")
+    ut, kt = (torch.from_numpy(a).requires_grad_() for a in (u, k))
+    (rt.fft_conv(ut, kt, planner, device="cpu")
+     * torch.from_numpy(w)).sum().backward()
+    out["conv_grad/local/u"], out["conv_grad/local/k"] = (
+        ut.grad.numpy(), kt.grad.numpy())
+    params, x = mixer_inputs()
+    wy = grad_weights(x.shape, "mixer")
+    whole = fftconv_mixer_from_reference(params, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    (whole(xt) * torch.from_numpy(wy)).sum().backward()
+    out["mixer_grad/local/x"] = xt.grad.numpy()
+    for n, p in whole.named_parameters():
+        out["mixer_grad/local/" + n] = p.grad.numpy()
+    for name in GRADS:
+        mesh = meshes[name]
+        if mesh is None:                    # this rank is not in the mesh
+            continue
+        axis = MESHES[name][1][0]
+        pn = mesh.size(0)
+        me = mesh.get_local_rank(axis)
+        blk = slice(me * u.shape[1] // pn, (me + 1) * u.shape[1] // pn)
+        ub = torch.from_numpy(u[:, blk]).requires_grad_()
+        kb = torch.from_numpy(k).requires_grad_()
+        (rt.fft_conv_seq_sharded(ub, kb, mesh, axis, planner)
+         * torch.from_numpy(w[:, blk])).sum().backward()
+        out["conv_grad/" + name + "/u"] = _gathered(ub.grad, mesh,
+                                                    [(1, axis)])
+        every = [torch.empty_like(kb.grad) for _ in range(pn)]
+        dist.all_gather(every, kb.grad, group=mesh.get_group(axis))
+        out["conv_grad/" + name + "/k"] = torch.stack(every).numpy()
+        mixer = fftconv_mixer_from_reference(params, device="cpu",
+                                             mesh=mesh, axis=axis)
+        blk = slice(me * x.shape[1] // pn, (me + 1) * x.shape[1] // pn)
+        xb = torch.from_numpy(x[:, blk]).requires_grad_()
+        (mixer(xb, seq_axis_sharded=True)
+         * torch.from_numpy(wy[:, blk])).sum().backward()
+        out["mixer_grad/" + name + "/x"] = _gathered(xb.grad, mesh,
+                                                     [(1, axis)])
+        for n, p in mixer.named_parameters():
+            every = [torch.empty_like(p.grad) for _ in range(pn)]
+            dist.all_gather(every, p.grad, group=mesh.get_group(axis))
+            out["mixer_grad/" + name + "/" + n] = torch.stack(every).numpy()
 
 
 def port_main(out_path, hw_json):
@@ -930,6 +1011,36 @@ def test_sharded_mixer_matches_its_unsharded_self_and_the_reference(runs,
     scale = np.abs(theirs).max()
     assert np.abs(ours - local).max() <= 1e-4 * scale
     assert np.abs(ours - theirs).max() <= 1e-4 * scale
+
+
+def _close(ours, want, what):
+    assert ours.shape == want.shape, (what, ours.shape, want.shape)
+    assert np.abs(ours - want).max() <= GRAD_TOL * np.abs(want).max(), what
+
+
+@pytest.mark.parametrize("mesh", GRADS)
+def test_seq_sharded_conv_gradient_matches_unsharded_and_the_reference(
+        runs, mesh):
+    ours, theirs = runs["port"][0], runs["ref"][0]
+    for x in ("u", "k"):
+        local = ours["conv_grad/local/" + x]
+        got = ours[f"conv_grad/{mesh}/{x}"]
+        want = theirs[f"conv_grad/{mesh}/{x}"]
+        if x == "k":                # whole, the same on every rank
+            assert (got == got[0]).all()
+            got = got[0]
+        _close(got, local, f"{x} against fft_conv")
+        _close(got, want, f"{x} against the reference")
+
+
+@pytest.mark.parametrize("mesh", GRADS)
+def test_sharded_mixer_gradient_matches_the_unsharded_mixer(runs, mesh):
+    ours = runs["port"][0]
+    _close(ours[f"mixer_grad/{mesh}/x"], ours["mixer_grad/local/x"], "x")
+    for n in ("w_in", "filt", "skip", "w_out"):
+        got = ours[f"mixer_grad/{mesh}/{n}"]
+        assert (got == got[0]).all(), n     # whole on every rank
+        _close(got[0], ours["mixer_grad/local/" + n], n)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
 def test_import_loads_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.calibrate, repro_torch.optim, repro_torch.runtime, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.parallel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -42,7 +43,9 @@ def test_import_loads_neither_jax_nor_the_reference():
                                     "repro_torch.data.pipeline",
                                     "repro_torch.checkpoint.manager",
                                     "repro_torch.runtime.trainer",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.parallel.rules",
+                                    "repro_torch.launch.mesh"])
 def test_the_distributed_modules_load_neither_jax_nor_the_reference(module):
     """Each module of the distributed layer and of the model stack,
     imported alone with torch.distributed, pulls in no JAX and nothing of
@@ -64,12 +67,15 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
               ROOT / "examples" / "quickstart_torch.py",
               ROOT / "examples" / "train_lm_torch.py",
               ROOT / "examples" / "fftconv_lm_torch.py",
-              ROOT / "scripts" / "dist_times.py"]
+              ROOT / "examples" / "serve_lm_torch.py",
+              ROOT / "scripts" / "dist_times.py",
+              ROOT / "scripts" / "dist_train.py"]
     assert {"comm.py", "dfft.py", "api.py", "fftconv.py", "compress.py",
             "lm.py", "serve.py", "olmo_1b.py", "ssm.py",
             "frontend.py", "adamw.py", "pipeline.py", "manager.py",
             "trainer.py", "train.py", "train_lm_torch.py",
-            "fftconv_lm_torch.py"} <= {f.name for f in files}
+            "fftconv_lm_torch.py", "rules.py", "mesh.py",
+            "serve_lm_torch.py", "dist_train.py"} <= {f.name for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())

@@ -113,9 +113,29 @@ def test_fft_conv_gradients_come_back_in_the_inputs_dtypes():
 
 
 def test_the_sharded_conv_refuses_grad_naming_the_queue():
-    u = torch.randn(1, 8, 2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="Queue 1 item 7"):
-        fc.fft_conv_seq_sharded(u, torch.randn(2, 8), None, "fft")
+    # it refused grad until its backward was ported; now, on a one-rank
+    # gloo mesh, its gradients are fft_conv's (tests/test_torch_dist.py
+    # holds them on 2 and 4 ranks)
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core.comm import make_mesh
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1,), ("fft",))
+        u = torch.randn(2, 16, 3, requires_grad=True)
+        k = torch.randn(3, 16, requires_grad=True)
+        w = torch.randn(2, 16, 3)
+        (fc.fft_conv_seq_sharded(u, k, mesh, "fft") * w).sum().backward()
+        ug, kg = u.grad, k.grad
+        u.grad = k.grad = None
+        (fc.fft_conv(u, k, device="cpu") * w).sum().backward()
+        close(ug, u.grad.numpy(), F32_TOL, "grad_u")
+        close(kg, k.grad.numpy(), F32_TOL, "grad_k")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_remat_recomputes_each_fft_conv_once_more(monkeypatch):
@@ -339,7 +359,8 @@ def test_a_frontend_config_trains_and_a_mesh_raises(tmp_path):
                                                            "train"))
     _, _, hist = tr.run(2)
     assert all(np.isfinite(h["loss"]) for h in hist)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # a mesh is a DeviceMesh (tests/test_torch_mesh_train.py trains on one)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(pc, SHAPE, object(), TrainerConfig(str(tmp_path)),
                 device="cpu")
 
@@ -354,7 +375,9 @@ def test_the_launcher_prints_the_references_summary(tmp_path, capsys):
     assert sorted(out) == ["first_loss", "last_loss", "steps",
                            "straggler_events"]
     assert CheckpointManager(str(tmp_path)).latest_step() == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # the production mesh needs its 256 ranks (tests/test_torch_mesh_train.py
+    # trains on a local mesh of 4)
+    with pytest.raises(ValueError, match="needs 256 ranks, got 1"):
         launch_train.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
                            "--mesh", "single"])
 
