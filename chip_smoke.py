@@ -173,11 +173,25 @@ run from the root of a checkout. Phases, each of which raises on failure:
    rank (losses, grad_norms, the first moment after the first step and
    the parameters after the last), with a control that must miss (gradients averaged over
    the data ranks instead of summed), and the sharded mixer's gradient
-   over (4,).
+   over (4,);
+19. serve on a (data, model) mesh: (a) phase 15's two models (the same
+   weights) on a (1, 1) mesh at world size 1 on NCCL through ServeLoop's
+   mesh (build_cell's decode cell, the serve profile off), 4 of phase
+   15's prompts and 8 new tokens each: every logits row equal to phase
+   15's, build_cell's prefill_step equal to phase 15's forward, the
+   launches exact; (b), run on phase 11's four gloo ranks in float32:
+   olmo-1b's width on two layers (FFT-conv, dense) on (1, 4) and (2, 2),
+   phi3.5-moe on two layers on (1, 4) (its experts over model) and the
+   two-layer model at batch 1 on (4, 1) (each rank caching a quarter of
+   the positions), prefill and decode within 1e-4 of max of rank 0's
+   one-device model (whose MoE routing the mesh replays), with two
+   controls that must miss (the experts not
+   summed over model; the flash-decoding partials not rescaled).
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
 at the blocks the sharded convolution and one prefill of the FFT-conv LM
-(bfloat16 activations, one prompt) hand them; phase 4 prints the
+(bfloat16 activations, one prompt) hand them, whole and a rank's on a
+(1, 4) mesh (512 of the 2048 channels); phase 4 prints the
 H100 profile's estimate of the four-step pass beside its time and fails
 beyond 1.5x; phase 10 prints plan_nd's estimate-mode and measured-mode
 verdicts at the chip shapes. The last lines are the kernel table as one
@@ -382,6 +396,31 @@ SHARDED_GRAD_LAUNCHES = {"four_step_fft": 6, "batched_transpose": 28,
                          "complex_multiply": 9, "fftconv_fused": 0}
 MESH_LAYERS = (("fftconv_mlp", 1), ("attn_mlp", 1))
 MESH_B, MESH_S, MESH_STEPS = 4, 2048, 3
+# phase 19: serving on a (data, model) mesh. (a) phase 15's two models
+# (the same seed: the same weights) on a (1, 1) mesh at world size 1 on
+# NCCL through ServeLoop's mesh (build_cell's decode cell: its rules, the
+# serve profile off, and its serve_step), MESH_SERVE_REQUESTS of phase 15's
+# prompts, MESH_SERVE_NEW tokens each from caches of phase 15's length:
+# every logits row equal to phase 15's, for every collective at world
+# size 1 is a copy; build_cell's prefill_step (forward's last position)
+# equal to phase 15's forward over each prompt; the launches phase 15's a
+# prefill and none a decode step. (b) over the GLOO_RANKS gloo ranks of
+# phase 11, float32 compute (TF32 off): olmo-1b's width on MESH_LAYERS on
+# (1, 4) and (2, 2) at batch SERVE_BATCH, phi3.5-moe at full width cut to
+# GLOO_PHI_LAYERS layers (bf16 weights cast at each use) on (1, 4), and
+# MESH_LAYERS on (4, 1) at batch 1 (the flash-decoding layout: each rank
+# caches GLOO_SERVE_S / 4 positions); each prefills GLOO_SERVE_S tokens
+# (phi GLOO_PHI_S) and decodes GLOO_SERVE_NEW forced tokens, every logits
+# row within GLOO_SERVE_TOL of max of rank 0's one-device model, float32
+# arithmetic in another order (the MoE's routing replayed from the
+# one-device run: a float32 near-tie at full width flips an expert,
+# routes_replayed); the FFT-conv layer's launches exact on
+# every rank (its prefill's, none a decode step). Controls that must miss:
+# the MoE's experts combined on each rank without the sum over model, and
+# the flash-decoding partials merged without the rescale to the global max
+MESH_SERVE_REQUESTS, MESH_SERVE_NEW = 4, 8
+GLOO_SERVE_S, GLOO_PHI_S, GLOO_SERVE_NEW, GLOO_SERVE_TOL = 2048, 512, 4, 1e-4
+GLOO_PHI_LAYERS = 2
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -683,13 +722,13 @@ def decaying_filter(n: int, gen) -> torch.Tensor:
         -torch.arange(n, device="cuda", dtype=torch.float32) / 64)
 
 
-def conv_blocks(nf: int, b: int = MIXER_B, length: int = MIXER_S):
-    """What fft_conv hands the kernels on a mixer's path: the four-step
-    (permuted) gets the padded activations (B, D, nf) and filters (D, nf);
-    the transpose gets two views, v (B, L, D), the first half of
-    x @ w_in (B, L, 2D), and the cropped output (B, D, L) of (B, D, nf),
-    given here as (array shape, cropped shape)."""
-    d = MIXER_D
+def conv_blocks(nf: int, b: int = MIXER_B, length: int = MIXER_S,
+                d: int = MIXER_D):
+    """What fft_conv hands the kernels on a mixer's path of ``d`` channels:
+    the four-step (permuted) gets the padded activations (B, D, nf) and
+    filters (D, nf); the transpose gets two views, v (B, L, D), the first
+    half of x @ w_in (B, L, 2D), and the cropped output (B, D, L) of (B, D,
+    nf), given here as (array shape, cropped shape)."""
     return (((b, d, nf), (d, nf)),
             (((b, length, 2 * d), (b, length, d)),
              ((b, d, nf), (b, d, length))))
@@ -819,36 +858,38 @@ def phase_sharded_conv_kernels(gen, planner, errs) -> None:
           f"batched_transpose (exact) at its moves {moves}")
 
 
-def phase_lm_kernels(gen, factors, errs) -> None:
+def phase_lm_kernels(gen, factors, errs, tp: int = 1) -> None:
     """The four-step, transpose and complex-multiply kernels against their
     plain versions at the blocks one prefill of the FFT-conv LM hands them
-    (phase 15: one prompt of LM_PROMPT tokens, bfloat16 activations), added
-    to ``errs``' entries for them."""
+    (phase 15: one prompt of LM_PROMPT tokens, bfloat16 activations; with
+    ``tp``, a rank's when its channels are cut ``tp`` ways, as on a (1,
+    tp) mesh), added to ``errs``' entries for them."""
     nf = factors[0] * factors[1]
-    four, moves = conv_blocks(nf, 1, LM_PROMPT)
+    four, moves = conv_blocks(nf, 1, LM_PROMPT, MIXER_D // tp)
+    what = "LM prefill" if tp == 1 else f"LM prefill on (1, {tp})"
     for shape in four:
         x = (randn(shape, gen), randn(shape, gen))
         err, scale = four_step_error(x, factors, permuted=True)
         check(err <= 1e-4 * scale, f"four_step_fft {shape} {factors} "
-              f"permuted (LM prefill): err {err} > 1e-4 * {scale}")
-        errs["four_step_fft"][f"LM prefill {shape} permuted"] = err
+              f"permuted ({what}): err {err} > 1e-4 * {scale}")
+        errs["four_step_fft"][f"{what} {shape} permuted"] = err
         errs["four_step_worst_rel"] = max(errs["four_step_worst_rel"],
                                           err / scale)
         del x
     # v is bfloat16 (x @ w_in in the compute dtype), the output float32
     for (full, crop), dtype in zip(moves, (torch.bfloat16, torch.float32)):
         x = randn(full, gen, dtype)[tuple(slice(0, c) for c in crop)]
-        errs["batched_transpose"][f"LM prefill {crop} {dtype} view of "
+        errs["batched_transpose"][f"{what} {crop} {dtype} view of "
                                   f"{full}"] = transpose_error(x)
         del x
     a = tuple(randn(four[0], gen) for _ in "ri")
     b = tuple(randn(four[1], gen) for _ in "ri")
     err = cmul_error(a, b)
-    check(err <= 1e-5, f"complex_multiply {four[0]} x {four[1]} (LM "
-          f"prefill): err {err} > 1e-5")
+    check(err <= 1e-5, f"complex_multiply {four[0]} x {four[1]} ({what}):"
+          f" err {err} > 1e-5")
     errs["complex_multiply"] = max(errs["complex_multiply"], err)
     del a, b
-    print(f"checked four_step_fft permuted at the LM prefill's {four} "
+    print(f"checked four_step_fft permuted at the {what}'s {four} "
           f"{factors}, batched_transpose (exact) at its moves of "
           f"{[crop for _, crop in moves]} (bfloat16, float32 views) and "
           f"complex_multiply at {four[0]} x {four[1]} (err {err:.3e}, limit "
@@ -1920,10 +1961,15 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
         torch.cuda.empty_cache()
         # phase 18 (c) on the same ranks
         extra += gloo_mesh_train(rank, meshes["(4,)"], planner, gen)
+        t19 = time.perf_counter()
+        torch.cuda.empty_cache()
+        # phase 19 (b) on the same ranks
+        extra += gloo_mesh_serve(rank, planner)
         if rank == 0:
             extra.append(f"gloo{GLOO_RANKS} phases 12-14 took "
                          f"{t18 - t0:.1f} s, phase 18 (c) took "
-                         f"{time.perf_counter() - t18:.1f} s")
+                         f"{t19 - t18:.1f} s, phase 19 (b) took "
+                         f"{time.perf_counter() - t19:.1f} s")
             Path(out_path).write_text(json.dumps({"runs": out,
                                                   "extra": extra}))
     finally:
@@ -1967,8 +2013,9 @@ def phase_gloo_ranks() -> dict:
 
 
 def serve(model, cfg, prompts, planner=None, forced=None, new=SERVE_NEW,
-          routing=None, control=None, cache32=False) -> dict:
-    """Serve ``prompts`` through ServeLoop (batch SERVE_BATCH, ``new``
+          routing=None, control=None, cache32=False, max_len=None,
+          mesh=None, batch=SERVE_BATCH) -> dict:
+    """Serve ``prompts`` through ServeLoop (a batch of ``batch``, ``new``
     tokens each, caches of the prompt length + ``new``) on ``model``,
     keeping every logits row a request takes a token from. ``forced`` (rid
     -> tokens) feeds each request those tokens instead of its own argmax
@@ -1979,7 +2026,9 @@ def serve(model, cfg, prompts, planner=None, forced=None, new=SERVE_NEW,
     prefill's cache into its slot (the slot keeps an empty cache),
     "frozen" undoes every decode step's writes to the cache (a recurrent
     state is never carried, a new token's k/v never kept). ``cache32``
-    keeps the decode cache in float32 (``float32_cache``). Returns the
+    keeps the decode cache in float32 (``float32_cache``). ``max_len``:
+    the caches' length (default the prompt's and ``new``); ``mesh``: the
+    loop runs on it (``ServeLoop``'s mesh), ``model`` placed by it. Returns the
     rows, routing and tokens by request, the kernel launches of the
     drained run alone, the ms of each step that admitted no request, the
     run's seconds and its peak device memory."""
@@ -2024,8 +2073,8 @@ def serve(model, cfg, prompts, planner=None, forced=None, new=SERVE_NEW,
             if not admits:
                 decode_ms.append((time.perf_counter() - t0) * 1e3)
 
-    loop = Recorded(cfg, SERVE_BATCH, len(prompts[0]) + new,
-                    model=model, planner=planner)
+    loop = Recorded(cfg, batch, max_len or len(prompts[0]) + new,
+                    model=model, planner=planner, mesh=mesh)
     if cache32:
         for layer in loop.cache["layers"]:
             for k, t in layer.items():
@@ -2132,10 +2181,14 @@ def phase_fftconv_lm(label, olmo, planners) -> dict:
               f"{res['launches']}, expected {want} ({per_prefill} a prefill, "
               "none a decode step)")
         err_a = []
+        kept = kept_rows(res)
+        kept["prompts"] = prompts[:MESH_SERVE_REQUESTS]
         for rid, prompt in enumerate(prompts):
             full, _ = model(as_batch(prompt))
             check(torch.isfinite(full).all().item(), "forward non-finite")
             err_a.append(rel_err(cfg, res["rows"][rid][0], full[0, -1]))
+            if rid < MESH_SERVE_REQUESTS:
+                kept["forward"].append(full[0, -1].clone())
             del full
         check(max(err_a) <= SERVE_TOL, f"FFT-conv LM prefill against "
               f"forward: err/max {max(err_a)} > {SERVE_TOL}")
@@ -2188,15 +2241,26 @@ def phase_fftconv_lm(label, olmo, planners) -> dict:
             (f"FFT-conv LM decode step batch {SERVE_BATCH} at {LM_PROMPT}",
              lambda: model.decode_step(cache, step))], top=25)
         del cache
-    launches = res["launches"]
+    kept["launches"] = res["launches"]
     del model, res
     torch.cuda.empty_cache()
-    return launches
+    return kept
 
 
-def phase_olmo(label, olmo) -> None:
+def kept_rows(res) -> dict:
+    """What phase 19 holds the mesh against: the first MESH_SERVE_REQUESTS
+    requests' prompts' rows and their first MESH_SERVE_NEW decode rows
+    (and the median decode step's ms, printed beside its own)."""
+    return {"rows": {rid: [r.clone() for r in res["rows"][rid][
+        :1 + MESH_SERVE_NEW]] for rid in range(MESH_SERVE_REQUESTS)},
+        "forward": [], "decode_ms": statistics.median(res["decode_ms"])}
+
+
+def phase_olmo(label, olmo) -> dict:
     """olmo-1b as published, served; each served logits row held against
-    forward over the prompt and the tokens served before it."""
+    forward over the prompt and the tokens served before it. Returns what
+    phase 19 holds the mesh against (``kept_rows``, and forward over each
+    of those prompts alone)."""
     import numpy as np
     from repro_torch.models import LM
     rng = np.random.default_rng(SEED + 1)
@@ -2208,6 +2272,10 @@ def phase_olmo(label, olmo) -> None:
         res = serve(model, olmo, prompts)
         check(sum(res["launches"].values()) == 0,
               f"olmo-1b launched {res['launches']}")
+        kept = kept_rows(res)
+        kept["prompts"] = prompts[:MESH_SERVE_REQUESTS]
+        kept["forward"] = [model(as_batch(p))[0][0, -1].clone()
+                           for p in kept["prompts"]]
         twin, _ = float32_twin(model, olmo)
         errs, served32, forward32 = [], [], []
         for rid, prompt in enumerate(prompts):
@@ -2245,6 +2313,7 @@ def phase_olmo(label, olmo) -> None:
              lambda: model.decode_step(cache, step))], top=15)
     del model, res, cache
     torch.cuda.empty_cache()
+    return kept
 
 
 # ---------------------------------------------------------------------------
@@ -2324,10 +2393,11 @@ def moe_logged(log):
     """For ``patched("moe_fwd", ...)``: the MoE, which also appends each
     call's ``plain_route`` to ``log``."""
     def wrap(moe_fwd):
-        def logged(p, cfg, x, num_groups=1):
-            check(num_groups == 1, "a MoE layer routed in groups")
+        def logged(p, cfg, x, num_groups=1, tp=None):
+            check(num_groups == 1 and tp is None, "a MoE layer routed in "
+                  "groups or over ranks")
             log.append(plain_route(p, cfg, x))
-            return moe_fwd(p, cfg, x, num_groups)
+            return moe_fwd(p, cfg, x, num_groups, tp)
         return logged
     return wrap
 
@@ -2344,7 +2414,8 @@ def moe_forced(routes, capacity=True, renormalise=True):
     calls = iter(routes)
 
     def wrap(_):
-        def forced(p, cfg, x, num_groups=1):
+        def forced(p, cfg, x, num_groups=1, tp=None):
+            check(tp is None, "a forced MoE over ranks")
             experts, keep = next(calls)
             xt = x.reshape(-1, x.shape[-1])
             t, dt = xt.shape[0], x.dtype
@@ -2366,6 +2437,32 @@ def moe_forced(routes, capacity=True, renormalise=True):
                 out.index_add_(0, tok, y * w[tok, choice, None].to(dt))
             return out.reshape(x.shape), torch.zeros((), device=x.device)
         return forced
+    return wrap
+
+
+def routes_replayed(log, replay: bool):
+    """For ``patched("moe_route", ...)``: the router, which appends each
+    call's discrete routing (the experts chosen, their slots, which were
+    kept; on the CPU) to ``log``, or (``replay``) takes them from ``log``
+    in call order and weights them by this call's own gates renormalised.
+    Two orders of float32 arithmetic (one device, a mesh) agree to 1e-6,
+    but at full width a router near-tie within that flips an expert
+    choice of some token, which moves its row and, through the capacity
+    and attention, the rows after it; a run replaying the other's routing
+    is held at float32 noise."""
+    calls = iter(log)
+
+    def wrap(route):
+        def run(p, cfg, xt):
+            gates, topv, topi, pos, keep = route(p, cfg, xt)
+            if not replay:
+                log.append((topi.cpu(), pos.cpu(), keep.cpu()))
+                return gates, topv, topi, pos, keep
+            topi, pos, keep = (t.to(xt.device) for t in next(calls))
+            topv = gates.gather(-1, topi)
+            topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+            return gates, topv, topi, pos, keep
+        return run
     return wrap
 
 
@@ -3302,6 +3399,216 @@ def gloo_mesh_train(rank, mesh4, planner, gen) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# serving on a (data, model) mesh (phase 19)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def serve_profile_off():
+    """For the block, build_cell's default (train) rules for serving."""
+    import os
+    saved = os.environ.pop("REPRO_SERVE_WEIGHT_STATIONARY", None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ["REPRO_SERVE_WEIGHT_STATIONARY"] = saved
+
+
+def phase_mesh_serving(label, name, cfg, planner, kept, max_len, mesh,
+                       per_prefill) -> dict:
+    """Phase 19 (a) for one model: served through ServeLoop on ``mesh``
+    against phase 15's ``kept`` rows; build_cell's prefill_step against
+    phase 15's forward. Returns the served run's launches."""
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import LM
+    from repro_torch.models.config import ShapeConfig
+    t0 = time.perf_counter()
+    prompts = kept["prompts"]
+    with torch.no_grad(), serve_profile_off():
+        model = LM(cfg, planner=planner, generator=torch.Generator(
+            device="cuda").manual_seed(SEED)).to_compute_dtype()
+        res = serve(model, cfg, prompts, new=MESH_SERVE_NEW, max_len=max_len,
+                    mesh=mesh)
+        want = {k: v * len(prompts) for k, v in per_prefill.items()}
+        check(res["launches"] == want, f"{name} served on the (1, 1) mesh: "
+              f"launches {res['launches']}, expected {want}")
+        diff = max((a - b).abs().max().item() for rid, rows in
+                   kept["rows"].items()
+                   for a, b in zip(res["rows"][rid], rows))
+        check(diff == 0.0, f"{name} served on the (1, 1) mesh: logits "
+              f"{diff} off phase 15's")
+        cell = build_cell(cfg, ShapeConfig("prefill", len(prompts[0]), 1,
+                                           "prefill"), mesh)
+        first = max((cell.fn(model, as_batch(p))[0, -1] - f).abs().max()
+                    .item() for p, f in zip(prompts, kept["forward"]))
+        check(first == 0.0, f"{name} prefill_step on the (1, 1) mesh: "
+              f"logits {first} off phase 15's forward")
+    rows = sum(len(r) for r in res["rows"].values())
+    print(f"serve mesh {name} on a (1, 1) (data, model) mesh (NCCL, world "
+          f"size 1, build_cell's decode cell, serve profile off): "
+          f"{len(prompts)} requests, {MESH_SERVE_NEW} new each, {rows} "
+          f"logits rows equal to phase 15's (max diff {diff}); prefill_step "
+          f"equal to phase 15's forward (max diff {first}); launches "
+          f"{res['launches']} (exact); decode "
+          f"{statistics.median(res['decode_ms']):.3f} ms a step (phase "
+          f"15's {kept['decode_ms']:.3f}; no FSDP2 on one data rank); "
+          f"{time.perf_counter() - t0:.1f} s [{label}]")
+    launches = res["launches"]
+    del model, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gloo_mesh_serve(rank, planner) -> list:
+    """Phase 19 (b) over the gloo ranks: each case served on its mesh
+    (build_cell's decode cell) against rank 0's one-device model, with the
+    controls. Returns rank 0's lines."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import kernels, make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import LM, blocks
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel import NamedSharding
+    phi = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              num_layers=GLOO_PHI_LAYERS,
+                              compute_dtype="float32",
+                              param_dtype="bfloat16")
+    cases = [("olmo-1b width on MESH_LAYERS", mesh_cfg(), (1, 4),
+              SERVE_BATCH, GLOO_SERVE_S),
+             ("olmo-1b width on MESH_LAYERS", mesh_cfg(), (2, 2),
+              SERVE_BATCH, GLOO_SERVE_S),
+             (f"phi3.5-moe on {GLOO_PHI_LAYERS} layers", phi, (1, 4),
+              SERVE_BATCH, GLOO_PHI_S),
+             ("olmo-1b width on MESH_LAYERS, flash decoding", mesh_cfg(),
+              (4, 1), 1, GLOO_SERVE_S)]
+    lines = []
+
+    def no_model_sum(moe_fwd):
+        from unittest import mock
+
+        def run(*args, **kwargs):
+            with mock.patch.object(blocks.TensorParallel, "reduce",
+                                   lambda self, y, dtype: y):
+                return moe_fwd(*args, **kwargs)
+        return run
+
+    def no_rescale(_):
+        def combine(m, num, den, seq):
+            both = seq.reduce(torch.cat([num, den], -1))
+            return both[..., :-1] / both[..., -1:]
+        return combine
+
+    for name, cfg, dm, batch, s in cases:
+        t0 = time.perf_counter()
+        max_len = s + GLOO_SERVE_NEW
+        mesh = make_mesh(dm, ("data", "model"),
+                         timeout=datetime.timedelta(seconds=300),
+                         device_type="cuda")
+        with serve_profile_off():
+            cell = build_cell(cfg, ShapeConfig("serve", max_len, batch,
+                                               "decode"), mesh)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, s), generator=gen,
+                                device="cuda")
+        steps = torch.randint(0, cfg.vocab_size, (GLOO_SERVE_NEW, batch, 1),
+                              generator=gen, device="cuda")
+        # the cache's layout (LM.seq_split): this rank's rows, or all
+        split = not (batch % dm[0] == 0 and batch >= dm[0])
+        n = batch // dm[0]
+        first = mesh.get_local_rank("data") * n
+        rows = slice(None) if split else slice(first, first + n)
+
+        def run(m, step, groups, gather, rows=rows, routes=None):
+            # a MoE's routing logged (one device) or replayed (the mesh)
+            with torch.no_grad(), float32_cache(), (
+                    patched("moe_route", routes) if routes
+                    else contextlib.nullcontext()):
+                lg, cache = m.prefill({"tokens": prompts[rows]}, max_len,
+                                      groups, global_batch=batch)
+                out = [gather(lg)]
+                for tok in steps:
+                    lg, cache = step(cache, {"tokens": tok[rows]})
+                    out.append(gather(lg))
+            # the vocabulary's columns (the padding ones hold -1e30)
+            return torch.cat(out, 1)[..., :cfg.vocab_size]
+
+        def gather(lg):
+            if split or dm[0] == 1:
+                return lg
+            return NamedSharding(mesh, ("data", None, None)).gather(lg)
+
+        # rank 0's one-device model first: its MoE routing, replayed on
+        # the mesh (routes_replayed)
+        log = [None]
+        if rank == 0:
+            single = LM(cfg, planner=planner, generator=torch.Generator(
+                device="cuda").manual_seed(SEED))
+            log[0] = []
+            want_rows = run(single, lambda c, t: single.decode_step(
+                c, t, dm[0]), dm[0], lambda lg: lg, slice(None),
+                routes_replayed(log[0], False))
+            del single
+            torch.cuda.empty_cache()
+        dist.broadcast_object_list(log, src=0)
+        log = log[0]
+
+        def replay():
+            return routes_replayed(log, True) if cfg.num_experts else None
+
+        model = cell.build(torch.Generator(device="cuda").manual_seed(SEED),
+                           planner)
+        check(model.seq_split(batch) == split, "the cache's layout")
+
+        def step(cache, tok):
+            return cell.fn(model, cache, tok)
+
+        kernels.reset_launch_counts()
+        got = run(model, step, dm[0], gather, routes=replay())
+        launches = kernels.launch_counts()
+        n_conv = sum(c for k, c in cfg.resolved_segments()
+                     if k == "fftconv_mlp")
+        want = {k: v * n_conv for k, v in LM_LAYER_LAUNCHES.items()}
+        check(launches == want, f"gloo rank {rank} serve {name} on {dm}: "
+              f"launches {launches}, expected {want}")
+        control = None
+        if cfg.num_experts:
+            with patched("moe_fwd", no_model_sum):
+                control = run(model, step, dm[0], gather, routes=replay())
+        elif split:
+            with patched("lse_combine", no_rescale):
+                control = run(model, step, dm[0], gather)
+        del model
+        torch.cuda.empty_cache()
+        if rank == 0:
+            scale = want_rows.abs().max().item()
+            err = (got - want_rows).abs().max().item() / scale
+            check(math.isfinite(err) and err <= GLOO_SERVE_TOL,
+                  f"gloo serve {name} on {dm}: err/max {err} > "
+                  f"{GLOO_SERVE_TOL}")
+            line = (f"gloo{GLOO_RANKS} serve mesh {name} on {dm} (data, "
+                    f"model), float32, batch {batch}, {s} + "
+                    f"{GLOO_SERVE_NEW} tokens: {got.shape[1]} logits rows "
+                    f"a sequence err/max {err:.3e} (tol {GLOO_SERVE_TOL}) "
+                    f"against one device; rank 0 launches {launches} "
+                    f"(exact)")
+            if control is not None:
+                missed = (control - want_rows).abs().max().item() / scale
+                what = ("experts without the sum over model"
+                        if cfg.num_experts else "partials not rescaled")
+                check(missed > GLOO_SERVE_TOL, f"gloo serve {name} control "
+                      f"({what}) within {GLOO_SERVE_TOL}: {missed}")
+                line += f"; control ({what}) {missed:.3e}"
+            lines.append(line + f"; {time.perf_counter() - t0:.1f} s")
+        del got, control
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3351,6 +3658,7 @@ def main() -> int:
     errs.update(phase_conv_kernels(gen, conv_factors, errs))
     phase_sharded_conv_kernels(gen, planner, errs)
     phase_lm_kernels(gen, conv_factors, errs)
+    phase_lm_kernels(gen, conv_factors, errs, tp=GLOO_RANKS)
     phase_train_kernels(gen, conv_factors, errs)
     print("kernels " + json.dumps(errs))
 
@@ -3425,10 +3733,11 @@ def main() -> int:
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     olmo = get_config("olmo-1b")
-    lm_launches = phase_fftconv_lm(label, olmo, {
+    kept = {"FFT-conv LM": phase_fftconv_lm(label, olmo, {
         "hopper": planner, "torch": planners["torch"],
-        "torch_native": Planner(backends=("torch_native",))})
-    phase_olmo(label, olmo)
+        "torch_native": Planner(backends=("torch_native",))})}
+    lm_launches = kept["FFT-conv LM"]["launches"]
+    kept["olmo-1b"] = phase_olmo(label, olmo)
     print(f"LM phase: 15 took {time.perf_counter() - t0:.1f} s")
 
     # phase 16: the other layer kinds at full width
@@ -3485,17 +3794,38 @@ def main() -> int:
             del res["params"]
     print(f"LM phase: 18 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 19: serving on a (data, model) mesh at world size 1 on NCCL
+    # ((b), over four gloo ranks, ran with phase 11)
+    t0 = time.perf_counter()
+    m1, _, store = start_nccl()
+    try:
+        m_dm = make_mesh((1, 1), ("data", "model"))
+        serve_mesh_launches = phase_mesh_serving(
+            label, "FFT-conv LM", fftconv_lm, planner, kept["FFT-conv LM"],
+            LM_PROMPT + SERVE_NEW, m_dm,
+            {k: v * olmo.num_layers for k, v in LM_LAYER_LAUNCHES.items()})
+        for kernel, n in phase_mesh_serving(
+                label, "olmo-1b", olmo, None, kept["olmo-1b"],
+                OLMO_PROMPT + SERVE_NEW, m_dm,
+                dict.fromkeys(LM_LAYER_LAUNCHES, 0)).items():
+            serve_mesh_launches[kernel] += n
+    finally:
+        dist.destroy_process_group()
+        del store, kept
+    print(f"LM phase: 19 took {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches in the counted run of every path: the N-D FFT
     # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving
     # (15), the other layer kinds served (16: none, checked there),
     # training (17: the steps of both runs), training on the (1, 1) mesh
     # (18 (a): the steps of both runs), the sharded mixer's forward and
-    # backward (18 (b))
+    # backward (18 (b)), LM serving on the (1, 1) mesh (19 (a))
     paths = {"nd_fft": launches, "mixer": mixer_launches,
              "fftconv_fused": fused_launches, "lm_serve": lm_launches,
              "lm_kinds_serve": kind_launches, "lm_train": train_launches,
              "lm_train_mesh": mesh_launches,
-             "sharded_conv_grad": sharded_grad_launches}
+             "sharded_conv_grad": sharded_grad_launches,
+             "lm_serve_mesh": serve_mesh_launches}
 
     def counts(name):
         by_path = {path: c[name] for path, c in paths.items()}

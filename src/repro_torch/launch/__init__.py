@@ -1,2 +1,3 @@
 """Launchers of the port: the serving loop (``launch.serve``), the trainer
-CLI (``launch.train``) and mesh construction (``launch.mesh``)."""
+CLI (``launch.train``), mesh construction (``launch.mesh``) and the
+per-cell step functions (``launch.specs``)."""

@@ -15,15 +15,21 @@ accumulates in float32 and rounds once, as the reference's float32 result
 cast back does.
 
 Tensor parallelism over the mesh's ``model`` axis (``TensorParallel``)
-covers attention (heads), the MLP (d_ff) and the FFT-conv mixer
-(channels): the LM holds each rank's block of the column- and row-sharded
-weights, a column-parallel input passes through ``CopyToRanks`` (identity,
-gradient summed over the axis) and a row-parallel output through
-``AllReduce`` (summed, gradient the identity), its partials cast to
-``_reduce_pe(cfg)`` first. The MoE runs each data rank's tokens as one of
-the reference's ``num_groups`` groups; its expert parallelism over
-``model`` is not ported yet: its dispatch is a scatter into (E, capacity,
-d) buffers and its combine a gather.
+covers attention (heads), the MLP (d_ff), the MoE (experts) and the
+FFT-conv mixer (channels), in the forward pass and in decoding: the LM
+holds each rank's block of the column- and row-sharded weights, a
+column-parallel input passes through ``CopyToRanks`` (identity, gradient
+summed over the axis) and a row-parallel output through ``AllReduce``
+(summed, gradient the identity), its partials cast to ``_reduce_pe(cfg)``
+first. The MoE runs each data rank's tokens as one of the reference's
+``num_groups`` groups; its dispatch is a scatter into (E, capacity, d)
+buffers and its combine a gather.
+
+The flash-decoding layout (``SeqShard``): a decode cache whose sequence
+axis is cut over the data ranks. Each rank writes a new token's k/v (or
+v) only where it owns the position and attends to its own positions; the
+ranks' partials are merged by ``lse_combine`` (attention) or summed (the
+FFT-conv taps), in float32.
 """
 
 from __future__ import annotations
@@ -145,6 +151,55 @@ class TensorParallel:
         parts = [x.unflatten(dim, (groups, -1)) for x in parts]
         return torch.cat(parts, dim + 1).flatten(dim, dim + 1)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """This rank's block of a decode cache's positions in the
+    flash-decoding layout: the sequence axis cut into ``size`` equal blocks
+    over the data ranks (``groups``, the dp axes in turn), this rank
+    holding block ``rank``."""
+    groups: Tuple[Any, ...]
+    size: int
+    rank: int
+
+    def reduce(self, t: torch.Tensor,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced by ``op`` over every block's rank (a new
+        tensor)."""
+        t = t.contiguous().clone()
+        for group in self.groups:
+            dist.all_reduce(t, op=op, group=group)
+        return t
+
+
+def lse_combine(m: torch.Tensor, num: torch.Tensor, den: torch.Tensor,
+                seq: SeqShard) -> torch.Tensor:
+    """Attention over every rank's block of positions from each block's
+    float32 partials: ``m`` (..., 1) the block's running max of the scores,
+    ``num`` (..., hd) and ``den`` (..., 1) its sums of exp(score - m)
+    times v and alone. The max over the blocks is all-reduced with MAX,
+    each block's partials rescaled to it, and numerator and denominator
+    summed in one all-reduce."""
+    top = seq.reduce(m, dist.ReduceOp.MAX)
+    scale = torch.exp(m - top)
+    both = seq.reduce(torch.cat([num * scale, den * scale], -1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def _write_cache(buf: torch.Tensor, u: torch.Tensor, start: torch.Tensor,
+                 seq: Optional[SeqShard]) -> torch.Tensor:
+    """One token's ``u`` (B, 1, ...) into a decode cache ``buf`` at
+    ``start`` (B,), in place: ``_write_at``, or with ``seq`` (``buf`` this
+    rank's block of the positions) only into the rows whose position falls
+    in the block. Returns ``buf``."""
+    if seq is None:
+        return _write_at(buf, u, start)
+    local = start.long() - seq.rank * buf.shape[1]
+    own = (local >= 0) & (local < buf.shape[1])
+    rows = torch.arange(buf.shape[0], device=buf.device)[own]
+    buf[rows, local[own]] = u[own, 0].to(buf.dtype)
+    return buf
 
 
 def _write_at(buf: torch.Tensor, u: torch.Tensor,
@@ -331,21 +386,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
-    """Single-token attention against a (B, S, KV, hd) cache."""
+                     v_cache: torch.Tensor, cache_len: torch.Tensor,
+                     seq: Optional[SeqShard] = None) -> torch.Tensor:
+    """Single-token attention against a (B, S, KV, hd) cache; with ``seq``
+    the cache is this rank's block of the positions and the blocks'
+    partials are merged by ``lse_combine``."""
     b, sq, h, hd = q.shape
     _, sk, kvh, _ = k_cache.shape
     g = h // kvh
     scale = 1.0 / math.sqrt(hd)
     qr = (q.reshape(b, sq, kvh, g, hd) * scale).to(k_cache.dtype)
     s = torch.einsum("bqkgd,bskd->bqkgs", qr.float(), k_cache.float())
-    mask = (torch.arange(sk, device=q.device)[None, :]
+    first = 0 if seq is None else seq.rank * sk
+    mask = (first + torch.arange(sk, device=q.device)[None, :]
             < cache_len[:, None])                               # (B, S)
-    s = torch.where(mask[:, None, None, None, :], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    mask = mask[:, None, None, None, :]
+    s = torch.where(mask, s, -1e30)
+    if seq is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                           v_cache.float())
+    else:
+        m = s.amax(-1, keepdim=True)
+        e = torch.where(mask, torch.exp(s - m), 0.0)
+        num = torch.einsum("bqkgs,bskd->bqkgd", e.to(v_cache.dtype).float(),
+                           v_cache.float())
+        out = lse_combine(m, num, e.sum(-1, keepdim=True), seq)
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
@@ -357,9 +423,79 @@ def _heads_split(p: Params, cfg: ArchConfig,
     return tp is not None and p["wq"].shape[1] < cfg.num_heads
 
 
+def _kv_heads_read(cfg: ArchConfig, tp: TensorParallel, hl: int):
+    """Where the axis does not divide the K/V heads (whole on every rank):
+    (lo, hi, index), the K/V heads [lo, hi) that this rank's ``hl`` query
+    heads read, and each query head's among them, or None for index where
+    they group evenly (``hl / (hi - lo)`` consecutive query heads each, as
+    GQA groups them)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    first = tp.rank * hl
+    lo, hi = first // g, (first + hl - 1) // g + 1
+    index = [(first + j) // g - lo for j in range(hl)]
+    n = hi - lo
+    if hl % n == 0 and index == [j // (hl // n) for j in range(hl)]:
+        index = None
+    return lo, hi, index
+
+
+def _local_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, rope,
+               tp: Optional[TensorParallel]):
+    """(q, k, v, p, split, index): q of this rank's heads (all of them
+    without tensor parallelism), k/v of the K/V heads it holds, the
+    parameters it uses, whether the heads are split, and the K/V head of
+    each query head where they do not group evenly (``_kv_heads_read``).
+    The K/V heads a rank holds: its block where the axis divides them,
+    else those its query heads read, their weights' gradients summed over
+    the axis."""
+    split = _heads_split(p, cfg, tp)
+    index = None
+    if split:
+        x = tp.copy(x)
+        if p["wk"].shape[1] == cfg.num_kv_heads:        # K/V whole
+            lo, hi, index = _kv_heads_read(cfg, tp, p["wq"].shape[1])
+            p = dict(p)
+            for n in ("wk", "wv"):
+                p[n] = tp.copy(p[n])[:, lo:hi]
+            for n in ("bk", "bv"):
+                if n in p:
+                    p[n] = tp.copy(p[n])[lo:hi]
+    q, k, v = _qkv(p, cfg, x, rope)
+    return q, k, v, p, split, index
+
+
+def _per_query_head(t: torch.Tensor, index) -> torch.Tensor:
+    """K or V (B, S, n, hd) laid out for attention: as it is, or each
+    query head's K/V head (``_kv_heads_read``'s index)."""
+    return t if index is None else t[:, :, index]
+
+
+def cached_kv_heads(p: Params, cfg: ArchConfig,
+                    tp: Optional[TensorParallel]) -> int:
+    """The K/V heads this rank's decode cache holds (``_local_qkv``)."""
+    if not _heads_split(p, cfg, tp):
+        return cfg.num_kv_heads
+    if p["wk"].shape[1] < cfg.num_kv_heads:
+        return p["wk"].shape[1]
+    lo, hi, _ = _kv_heads_read(cfg, tp, p["wq"].shape[1])
+    return hi - lo
+
+
+def attention_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor, rope,
+                      tp: Optional[TensorParallel] = None):
+    """(output, k, v): causal self-attention over x, and the k/v of the
+    K/V heads this rank holds (``_local_qkv``), for the decode cache."""
+    q, k, v, p, split, index = _local_qkv(p, cfg, x, rope, tp)
+    out = flash_attention(q, _per_query_head(k, index),
+                          _per_query_head(v, index), causal=True)
+    y = _out_proj(p, out)
+    return (tp.reduce(y, _reduce_pe(cfg)) if split else y), k, v
+
+
 def attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[Dict] = None,
-                  tp: Optional[TensorParallel] = None
+                  tp: Optional[TensorParallel] = None,
+                  seq: Optional[SeqShard] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (output, updated cache). cache=None -> causal
     self-attention; else x's k/v are written into the cache's (B, S, KV,
@@ -368,37 +504,28 @@ def attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor,
     With ``tp`` and a block of the heads in ``p`` (``wq``, ``wk``, ``wv``
     and the biases column-sharded, ``wo`` row-sharded over ``model``) each
     rank attends with its heads and the partial outputs are summed in
-    ``_reduce_pe(cfg)``. K/V heads that the axis does not divide are whole
-    on every rank (the GQA case): each rank takes the K/V head of each of
-    its query heads, and their weights' gradients are summed over the
-    axis."""
+    ``_reduce_pe(cfg)``; its cache holds the K/V heads it reads. K/V heads
+    that the axis does not divide are whole on every rank (the GQA case):
+    each rank computes, and caches, only those its query heads read. The
+    reference's ``cache_pspecs`` shards the head dim over ``model`` in
+    that case instead; either way every query head attends to its own K/V
+    head, so the results are the same.
+
+    With ``seq`` the cache is this rank's block of the positions (the
+    flash-decoding layout): the new k/v are written only by the rank that
+    owns position ``len``, and ``decode_attention`` merges the blocks."""
     rope = rope_tables(cfg, positions)
-    split = _heads_split(p, cfg, tp)
-    if split:
-        if cache is not None:
-            raise NotImplementedError(
-                "decoding with tensor parallelism waits for the serve "
-                "profile (ROADMAP.md, Queue 1)")
-        x = tp.copy(x)
-        if p["wk"].shape[1] == cfg.num_kv_heads:        # K/V whole
-            p = {n: tp.copy(w) if n in ("wk", "wv", "bk", "bv") else w
-                 for n, w in p.items()}
-    q, k, v = _qkv(p, cfg, x, rope)
-    if split and k.shape[2] == cfg.num_kv_heads:
-        hl = q.shape[2]
-        g = cfg.num_heads // cfg.num_kv_heads
-        idx = (tp.rank * hl + torch.arange(hl, device=x.device)) // g
-        k, v = k[:, :, idx], v[:, :, idx]
     if cache is None:
-        out = flash_attention(q, k, v, causal=True)
-    else:
-        idx = cache["len"]                                      # (B,)
-        kc = _write_at(cache["k"], k, idx)
-        vc = _write_at(cache["v"], v, idx)
-        out = decode_attention(q, kc, vc, idx + 1)
-        cache = {"k": kc, "v": vc, "len": idx + 1}
+        return attention_prefill(p, cfg, x, rope, tp)[0], None
+    q, k, v, p, split, index = _local_qkv(p, cfg, x, rope, tp)
+    idx = cache["len"]                                          # (B,)
+    kc = _write_cache(cache["k"], k, idx, seq)
+    vc = _write_cache(cache["v"], v, idx, seq)
+    out = decode_attention(q, _per_query_head(kc, index),
+                           _per_query_head(vc, index), idx + 1, seq)
     y = _out_proj(p, out)
-    return (tp.reduce(y, _reduce_pe(cfg)) if split else y), cache
+    return ((tp.reduce(y, _reduce_pe(cfg)) if split else y),
+            {"k": kc, "v": vc, "len": idx + 1})
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +616,8 @@ def moe_route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
     return gates, topv, topi, pos, pos < moe_capacity(cfg, tg)
 
 
-def moe_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, num_groups: int = 1
+def moe_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, num_groups: int = 1,
+            tp: Optional[TensorParallel] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out, float32 aux loss): the reference's GShard-style
     grouped dispatch on one device (on a mesh, on each data rank's tokens:
@@ -499,6 +627,16 @@ def moe_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, num_groups: int = 1
     and are routed by ``moe_route``: a choice past its expert's capacity
     is dropped, so the output of a token depends on the tokens before it
     in its group.
+
+    With ``tp`` and a block of the experts in ``p`` (``w_up``, ``w_gate``
+    and ``w_down`` cut over ``model`` along the expert dim, the router
+    whole), every rank routes all the tokens, so capacity and drops are
+    the one-device ones; it dispatches only the choices bound for its
+    experts into (G, E/tp, capacity, d), runs them, combines those
+    choices, and the partial outputs are summed over ``model`` in
+    ``_reduce_pe(cfg)``. The tokens are whole on every rank of ``model``,
+    so no all-to-all is needed: this is GSPMD's ``expert``-sharded
+    dispatch with the tokens replicated over the axis.
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -517,23 +655,34 @@ def moe_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, num_groups: int = 1
     ce = F.one_hot(topi[..., 0], e).float().mean(1)
     aux = e * (me * ce).sum(-1).mean()
 
-    # dispatch: a dropped choice goes to a spare slot past the capacity
+    # this rank's experts [lo, lo + el): the others' choices are dropped
+    # here (the inputs and the weights used in part: gradients summed)
+    el = p["w_up"].shape[0]
+    split = tp is not None and el < e
     eid = topi.reshape(g, tg * k)
+    if split:
+        xt, topv = tp.copy(xt), tp.copy(topv)
+        eid = eid - tp.rank * el
+        keep = keep & (eid >= 0) & (eid < el)
+        eid = eid.clamp(0, el - 1)
+
+    # dispatch: a dropped choice goes to a spare slot past the capacity
     grp = torch.arange(g, device=x.device)[:, None]
-    buf = x.new_zeros((g, e, cap + 1, d))
+    buf = x.new_zeros((g, el, cap + 1, d))
     buf[grp, eid, torch.where(keep, pos, cap)] = \
         xt.repeat_interleave(k, dim=1)
     # expert-major: one batched product an expert over its G x C slots
-    ebuf = buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d)
+    ebuf = buf[:, :, :cap].transpose(0, 1).reshape(el, g * cap, d)
     dt = x.dtype
     h = ebuf @ p["w_up"].to(dt)
     h = F.silu(ebuf @ p["w_gate"].to(dt)) * h
-    eout = (h @ p["w_down"].to(dt)).reshape(e, g, cap, d).transpose(0, 1)
+    eout = (h @ p["w_down"].to(dt)).reshape(el, g, cap, d).transpose(0, 1)
 
     # combine: each kept choice's row, weighted, summed over the choices
     got = eout[grp, eid, torch.where(keep, pos, 0)] * keep[..., None].to(dt)
     got = got.reshape(g, tg, k, d) * topv[..., None].to(dt)
-    return got.sum(2).reshape(b, s, d), aux
+    out = got.sum(2).reshape(b, s, d)
+    return (tp.reduce(out, _reduce_pe(cfg)) if split else out), aux
 
 
 # ---------------------------------------------------------------------------
@@ -653,26 +802,40 @@ class FFTConvMixer(nn.Module):
             y = self.tp.reduce(y, self.reduce_dtype)
         return y
 
-    def decode(self, x: torch.Tensor, hist: torch.Tensor,
-               pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def decode(self, x: torch.Tensor, hist: torch.Tensor, pos: torch.Tensor,
+               seq: Optional[SeqShard] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One-token long-conv step (the reference's ``fftconv_decode``):
         y_t = sum_{j<=t} k[t-j] v_j over the cached value history, with the
         filters materialised over the history's length. x (B, 1, d); hist
         (B, S_max, d), updated in place with this step's v at ``pos``; pos
-        (B,) the current index. Returns (output, hist)."""
+        (B,) the current index. Returns (output, hist).
+
+        Channel-parallel (``tp``), hist holds this rank's d/tp channels and
+        the partial outputs are summed over ``model``. With ``seq`` hist is
+        this rank's block of the positions (the flash-decoding layout):
+        v is written by the rank that owns ``pos``, and the blocks' tap
+        sums are summed over the data ranks in float32."""
         dt = x.dtype
-        s_max = hist.shape[1]
+        first = 0 if seq is None else seq.rank * hist.shape[1]
+        s_max = hist.shape[1] * (1 if seq is None else seq.size)
         v, gate = self.project(x)
-        hist = _write_at(hist, v, pos)
-        filt = materialize_filter(self.filt.float(), s_max)     # (d, S)
+        hist = _write_cache(hist, v, pos, seq)
+        filt = materialize_filter(self._channels(self.filt).float(),
+                                  s_max)                        # (d, S)
         # the taps by lag, gathered in the history's (B, S, d) layout: lags
         # past the end take the last tap (the reference clips them), and
         # negative ones the zero row appended at index S
         taps = torch.cat([filt.T, filt.new_zeros((1, filt.shape[0]))])
-        lag = (pos.long()[:, None]
-               - torch.arange(s_max, device=x.device)[None, :])  # (B, S)
+        lag = (pos.long()[:, None] - first - torch.arange(
+            hist.shape[1], device=x.device)[None, :])           # (B, S)
         kk = taps[torch.where(lag >= 0, lag.clamp(max=s_max - 1), s_max)]
         y = (hist * kk).sum(1, keepdim=True)                    # float32
-        y = y.to(dt) + v * self.skip.to(dt)
+        if seq is not None:
+            y = seq.reduce(y)
+        y = y.to(dt) + v * self._channels(self.skip).to(dt)
         y = y * F.silu(gate)
-        return y @ self.w_out.to(dt), hist
+        y = y @ self.w_out.to(dt)
+        if self.tp is not None:
+            y = self.tp.reduce(y, self.reduce_dtype)
+        return y, hist

@@ -34,21 +34,32 @@ shipped config has a count of 1.
 Training: ``loss_fn`` is the reference's memory-lean cross-entropy plus
 0.01 times the MoE aux loss. With ``cfg.remat`` and autograd on,
 ``forward`` checkpoints each layer (``torch.utils.checkpoint``,
-non-reentrant: the reference's ``"full"`` policy, nothing saved but the
-layer's input). Parameters stay float32 and are cast at each use, so a
-trainer never calls ``to_compute_dtype``. A ``shared_attn`` block's
+non-reentrant): the reference's ``"full"`` policy keeps nothing but the
+layer's input, ``"dots"`` also the weight products (``_remat``).
+Parameters stay float32 and are cast at each use, so a trainer never
+calls ``to_compute_dtype``. A ``shared_attn`` block's
 gradient is the sum over its places, as the reference's
 ``params["shared"]`` is.
 
-On a mesh (``LM.place``, which the ``Trainer`` calls) each rank holds its
-rows of the batch (the ``dp`` axes) and, where the rules shard a weight
-over ``model``, its block of it: attention heads, the MLP's d_ff and the
-FFT-conv mixer's channels run tensor-parallel (``blocks``), and the
-embedding and head, whose vocab the rules shard too, are gathered over
-``model`` on use. The loss is the global one on every rank
-(``loss_fn``); the MoE's groups are split among the data ranks. Tensor
-parallelism of the other layer kinds, and serving on a mesh, are not
-ported yet (``NotImplementedError``).
+On a mesh (``LM.place``, which the ``Trainer`` and ``launch.specs``
+call) each rank holds its rows of the batch (the ``dp`` axes) and, where
+the rules shard a weight over ``model``, its block of it: attention
+heads, the MLP's d_ff, the MoE's experts and the FFT-conv mixer's
+channels run tensor-parallel (``blocks``), and the embedding and head,
+whose vocab the rules shard too, are gathered over ``model`` on use. The
+loss is the global one on every rank (``loss_fn``); the MoE's groups are
+split among the data ranks. Tensor parallelism of the other layer kinds
+and of the frontends is not ported yet (``NotImplementedError``).
+
+Serving on a mesh: ``init_cache`` allocates each rank's block of the
+decode cache (``launch.specs.cache_pspecs`` describes it): the K/V heads
+its query heads read, the FFT-conv history of its d/tp channels, and
+either its rows of the batch (a global batch that the data ranks divide)
+or, for a smaller batch, its block of the positions (the flash-decoding
+layout, ``seq_split``): ``prefill`` then runs the whole batch on every
+data rank and keeps each rank's block, and ``decode_step`` merges the
+blocks' partials over the data ranks (``blocks.SeqShard``). Both take the
+global batch, which fixes the layout, from their caller.
 """
 
 from __future__ import annotations
@@ -60,7 +71,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.plan import Planner, resolve_device
 from . import blocks, ssm
@@ -192,12 +204,12 @@ class Block(nn.Module):
     def set_tensor_parallel(self, tp: Optional[blocks.TensorParallel]):
         """Run this layer's attention, MLP or FFT-conv mixer over ``tp``'s
         ``model`` axis (its parameters already hold this rank's blocks)."""
-        if tp is not None and self.kind not in ("attn_mlp", "fftconv_mlp"):
+        if tp is not None and self.kind not in ("attn_mlp", "attn_moe",
+                                                "fftconv_mlp"):
             raise NotImplementedError(
                 f"tensor parallelism of {self.kind} layers waits for "
-                "ROADMAP.md, Queue 1 (expert placement of MoE over model; "
-                "tensor parallelism of shared_attn, mamba2, mlstm, slstm "
-                "and the frontends)")
+                "ROADMAP.md, Queue 1 item 2 (tensor parallelism of "
+                "shared_attn, mamba2, mlstm, slstm and the frontends)")
         self.tp = tp
         if self.kind == "fftconv_mlp":
             self.mix.tp = tp
@@ -207,17 +219,20 @@ class Block(nn.Module):
         """x plus the MLP or MoE of its norm; (x, MoE aux loss or None)."""
         h2 = blocks.apply_norm(self.ln2, self.cfg, x)
         if self.kind == "attn_moe":
-            out, aux = blocks.moe_fwd(self.moe, self.cfg, h2, num_groups)
+            out, aux = blocks.moe_fwd(self.moe, self.cfg, h2, num_groups,
+                                      self.tp)
             return x + out, aux
         return x + blocks.mlp_fwd(self.mlp, self.cfg, h2, self.tp), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict] = None,
-                lens: Optional[torch.Tensor] = None, num_groups: int = 1):
+                lens: Optional[torch.Tensor] = None, num_groups: int = 1,
+                seq: Optional[blocks.SeqShard] = None):
         """Without a cache the whole sequence; with this layer's decode
         cache (updated in place) and the sequences' lengths, one token.
-        ``num_groups``: the MoE's groups among these tokens. Returns (x,
-        the MoE aux loss or None)."""
+        ``num_groups``: the MoE's groups among these tokens; ``seq``: the
+        cache's block of positions in the flash-decoding layout. Returns
+        (x, the MoE aux loss or None)."""
         cfg = self.cfg
         if self.kind in RECURRENT:
             h = blocks.apply_norm(self.ln, cfg, x)
@@ -230,21 +245,23 @@ class Block(nn.Module):
         if self.kind == "fftconv_mlp":
             if cache is None:
                 return self._ffn(x + self.mix(h))
-            return self._ffn(x + self.mix.decode(h, cache["v_hist"], lens)[0])
+            return self._ffn(x + self.mix.decode(h, cache["v_hist"], lens,
+                                                 seq)[0])
         lc = None if cache is None else {**cache, "len": lens}
         out, _ = blocks.attention_fwd(self.attn, cfg, h, positions, lc,
-                                      self.tp)
+                                      self.tp, seq)
         if cfg.parallel_block:
             # command-r: attention and FFN in parallel off one norm
             return x + out + blocks.mlp_fwd(self.mlp, cfg, h, self.tp), None
         return self._ffn(x + out, num_groups)
 
-    def prefill(self, x: torch.Tensor, rope, pad: int):
+    def prefill(self, x: torch.Tensor, rope, pad: int, num_groups: int = 1):
         """The prompt through this layer, and the layer's decode cache:
-        attention k/v and the FFT-conv value history padded by ``pad``
-        positions, a recurrent mixer's final state. Attention runs before
-        the MLP whatever ``parallel_block`` says, as in the reference's
-        prefill."""
+        attention k/v (of the K/V heads this rank holds) and the FFT-conv
+        value history (of its channels) padded by ``pad`` positions, a
+        recurrent mixer's final state. Attention runs before the MLP
+        whatever ``parallel_block`` says, as in the reference's prefill.
+        ``num_groups``: the MoE's groups among these tokens."""
         cfg = self.cfg
         if self.kind in RECURRENT:
             h = blocks.apply_norm(self.ln, cfg, x)
@@ -257,11 +274,11 @@ class Block(nn.Module):
             x = x + self.mix.mix(v, gate)
             cache = {"v_hist": _pad_seq(v, pad)}
         else:
-            q, k, v = blocks._qkv(self.attn, cfg, h, rope)
-            out = blocks.flash_attention(q, k, v, causal=True)
-            x = x + blocks._out_proj(self.attn, out)
+            out, k, v = blocks.attention_prefill(self.attn, cfg, h, rope,
+                                                 self.tp)
+            x = x + out
             cache = {"k": _pad_seq(k, pad), "v": _pad_seq(v, pad)}
-        return self._ffn(x)[0], cache
+        return self._ffn(x, num_groups)[0], cache
 
 
 def _flat(tree, prefix: str = "") -> Dict[str, Any]:
@@ -277,17 +294,37 @@ def _flat(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+# the products of an activation with a weight: no batch dims of their own
+# (attention's batched products are ``aten.bmm``)
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(layer: Block, cfg: ArchConfig):
     """``layer`` itself, or, with ``cfg.remat`` and autograd on, ``layer``
-    under non-reentrant checkpointing: the reference's ``"full"`` policy
-    (``nothing_saveable``), which keeps only the layer's input."""
+    under non-reentrant checkpointing by ``cfg.remat_policy``: ``"full"``
+    (the reference's ``nothing_saveable``) keeps only the layer's input;
+    ``"dots"`` (``dots_with_no_batch_dims_saveable``) also keeps the
+    outputs of its weight products (``aten.mm``, ``aten.addmm``) and
+    recomputes the rest, attention's batched products included."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return layer
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat policy {cfg.remat_policy!r}: the port recomputes whole "
-            "layers (\"full\") only")
-    return functools.partial(checkpoint, layer, use_reentrant=False)
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, layer, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, layer, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_weight_products))
+    raise NotImplementedError(
+        f"remat policy {cfg.remat_policy!r}: the port has \"full\" and "
+        "\"dots\"")
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -347,7 +384,7 @@ class LM(nn.Module):
         self.mesh, self.rules = None, {}
         self.tp: Optional[blocks.TensorParallel] = None
         self.dp_groups: List[Any] = []
-        self.dp_size = 1
+        self.dp_size, self.dp_rank = 1, 0
 
     def place(self, mesh, rules: Dict[str, Any],
               meta: Optional[Dict[str, Any]] = None) -> "LM":
@@ -365,12 +402,13 @@ class LM(nn.Module):
         dp = self.rules.get("dp")
         for ax in (dp if isinstance(dp, tuple) else (dp,) if dp else ()):
             self.dp_groups.append(mesh.get_group(ax))
+            self.dp_rank = self.dp_rank * sizes[ax] + mesh.get_local_rank(ax)
             self.dp_size *= sizes[ax]
         if sizes.get("model", 1) > 1 and self.rules.get("tp") == "model":
             if self.cfg.frontend:
                 raise NotImplementedError(
                     "tensor parallelism of the frontends waits for "
-                    "ROADMAP.md, Queue 1")
+                    "ROADMAP.md, Queue 1 item 2")
             self.tp = blocks.TensorParallel(mesh.get_group("model"),
                                             sizes["model"],
                                             mesh.get_local_rank("model"))
@@ -382,6 +420,25 @@ class LM(nn.Module):
                 if layouts[name] is not None:
                     param.data = self.tp.block(param.data,
                                                *layouts[name]).clone()
+        return self
+
+    def draw(self, generator: torch.Generator, device) -> "LM":
+        """Give every parameter, in place, the value the constructor draws
+        from ``generator``: each drawn whole on the generator's device in
+        the constructor's order, cut to this rank's block (``tp_layouts``)
+        and kept on ``device``. An LM built on the ``meta`` device (which
+        draws nothing) and placed thus gets the weights of ``LM(cfg,
+        generator=generator)`` without a rank ever holding them whole."""
+        layouts = self.tp_layouts()
+        with torch.no_grad():
+            for name, m in _flat(model_meta(self.cfg)).items():
+                t = make_param(m, generator, device)
+                if layouts[name] is not None:
+                    t = self.tp.block(t, *layouts[name]).clone()
+                path, _, leaf = name.rpartition(".")
+                owner = self.get_submodule(path)
+                owner._parameters[leaf] = nn.Parameter(
+                    t, requires_grad=owner._parameters[leaf].requires_grad)
         return self
 
     def tp_layouts(self, meta: Optional[Dict[str, Any]] = None):
@@ -460,9 +517,14 @@ class LM(nn.Module):
                 else self._whole(self.lm_head, 1))
         return x @ head.to(self.dtype)
 
-    def _local_groups(self, num_groups: int) -> int:
+    def _local_groups(self, num_groups: int, rows: bool = True) -> int:
         """The MoE groups among this rank's tokens: on a mesh each data
-        rank's rows are ``num_groups / dp`` of the reference's groups."""
+        rank's rows are ``num_groups / dp`` of the reference's groups
+        (``rows``; else every data rank holds the whole batch)."""
+        if not any(layer.kind == "attn_moe" for layer in self.layers):
+            return 1
+        if not rows:
+            return num_groups
         if num_groups % self.dp_size:
             raise ValueError(f"{num_groups} MoE groups over {self.dp_size} "
                              "data ranks")
@@ -475,8 +537,7 @@ class LM(nn.Module):
         ``num_groups``: the MoE's token groups (the reference's; on a mesh,
         over all data ranks: this rank's batch is its ``num_groups / dp``
         groups, and its aux loss their mean)."""
-        local = self._local_groups(num_groups) if any(
-            layer.kind == "attn_moe" for layer in self.layers) else 1
+        local = self._local_groups(num_groups)
         x, positions = self._inputs(batch)
         x = shard_act(x, "dp", None, None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -488,18 +549,66 @@ class LM(nn.Module):
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
         return _mask_pad_vocab(self.cfg, self._logits(x)), aux
 
+    def seq_split(self, batch: int) -> bool:
+        """The layout of the decode caches of a global batch of ``batch``
+        sequences on this LM's mesh (``launch.specs.cache_pspecs``'s rule):
+        False, the batch over the data ranks (each passes and caches its
+        rows: ``batch % dp == 0 and batch >= dp``), or True, the
+        flash-decoding layout (every data rank passes the whole batch and
+        caches its block of the positions)."""
+        dp = self.dp_size
+        return dp > 1 and not (batch % dp == 0 and batch >= dp)
+
+    def _split(self, rows: int, global_batch: Optional[int]) -> bool:
+        """``seq_split`` of ``global_batch``, or (None) of the batch whose
+        rows each data rank holds ``rows`` of."""
+        return self.seq_split(global_batch if global_batch is not None
+                              else rows * self.dp_size)
+
+    def _seq(self, split: bool) -> Optional[blocks.SeqShard]:
+        if not split:
+            return None
+        return blocks.SeqShard(tuple(self.dp_groups), self.dp_size,
+                               self.dp_rank)
+
+    def _positions(self, max_len: int, split: bool) -> int:
+        """The positions of a cache of ``max_len`` that this rank holds."""
+        if not split:
+            return max_len
+        if max_len % self.dp_size:
+            raise ValueError(f"a cache of {max_len} positions does not "
+                             f"split over {self.dp_size} data ranks")
+        return max_len // self.dp_size
+
+    def _seq_block(self, cache: Dict[str, torch.Tensor], max_len: int,
+                   split: bool) -> Dict[str, torch.Tensor]:
+        """This rank's block of the positions of a layer's attention or
+        FFT-conv cache (a recurrent state as it is)."""
+        if not split or not set(cache) & {"k", "v_hist"}:
+            return cache
+        n = self._positions(max_len, split)
+        return {k: t.narrow(1, self.dp_rank * n, n).clone()
+                for k, t in cache.items()}
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int,
-                last_index: Optional[torch.Tensor] = None):
+                num_groups: int = 1,
+                last_index: Optional[torch.Tensor] = None,
+                global_batch: Optional[int] = None):
         """Run the prompt through the stack once, returning (float32 logits
         (B, 1, V) at ``last_index`` (default: the final position), decode
         cache of ``max_len`` positions). ``last_index`` (B,) selects the
         true prompt end when the input is right-padded to a length
         bucket; a recurrent layer's state is the one after the whole
-        input, pads included."""
-        self._serving_check()
+        input, pads included. ``num_groups``: the MoE's groups (on a mesh,
+        over all data ranks, as in ``forward``). On a mesh the batch and
+        the cache are laid out as ``init_cache(global_batch, max_len)``'s
+        (``seq_split``; None: ``batch`` is this rank's rows of a batch over
+        the data ranks)."""
         x, positions = self._inputs(batch)
         bsz, s = x.shape[:2]
+        split = self._split(bsz, global_batch)
+        local = self._local_groups(num_groups, rows=not split)
         pad = max_len - s
         if pad < 0:
             raise ValueError(f"a prompt of {s} tokens does not fit a cache "
@@ -507,8 +616,8 @@ class LM(nn.Module):
         rope = blocks.rope_tables(self.cfg, positions)
         caches = []
         for layer in self.layers:
-            x, c = layer.prefill(x, rope, pad)
-            caches.append(c)
+            x, c = layer.prefill(x, rope, pad, local)
+            caches.append(self._seq_block(c, max_len, split))
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
         if last_index is None:
             x_last = x[:, -1:, :]
@@ -522,42 +631,46 @@ class LM(nn.Module):
         logits = _mask_pad_vocab(self.cfg, self._logits(x_last).float())
         return logits, {"len": cache_len, "layers": caches}
 
-    def _serving_check(self) -> None:
-        if self.tp is not None:
-            raise NotImplementedError(
-                "serving with tensor parallelism waits for the serve "
-                "profile (ROADMAP.md, Queue 1)")
-
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """An empty decode cache of ``batch`` sequences of ``max_len``."""
+        """An empty decode cache of ``batch`` sequences of ``max_len``: on
+        a mesh ``batch`` is the global batch, which fixes the layout
+        (``seq_split``), and the cache is this rank's block of it."""
         cfg, dev = self.cfg, self.device
+        split = self.seq_split(batch)
+        rows = batch if split else batch // self.dp_size
+        n = self._positions(max_len, split)
         layers: List[Dict[str, torch.Tensor]] = []
         for layer in self.layers:
             if layer.kind in ATTENTION:
-                shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+                shape = (rows, n, blocks.cached_kv_heads(
+                    layer.attn, cfg, layer.tp), cfg.hd)
                 layers.append({k: torch.zeros(shape, dtype=torch.bfloat16,
                                               device=dev) for k in "kv"})
             elif layer.kind == "fftconv_mlp":
                 layers.append({"v_hist": torch.zeros(
-                    (batch, max_len, cfg.d_model), dtype=torch.bfloat16,
-                    device=dev)})
+                    (rows, n, layer.mix.w_out.shape[0]),
+                    dtype=torch.bfloat16, device=dev)})
             else:
-                layers.append(ssm.MIXERS[layer.kind][2](cfg, batch, dev))
-        return {"len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                layers.append(ssm.MIXERS[layer.kind][2](cfg, rows, dev))
+        return {"len": torch.zeros((rows,), dtype=torch.int32, device=dev),
                 "layers": layers}
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, Any],
-                    batch: Dict[str, torch.Tensor]):
+                    batch: Dict[str, torch.Tensor], num_groups: int = 1,
+                    global_batch: Optional[int] = None):
         """One new token per sequence, ``batch = {"tokens": (B, 1)}`` or
         ``{"embeds": (B, 1, d)}``, at position ``len``; returns (float32
         logits (B, 1, V), the cache, updated in place, with ``len`` one
-        longer)."""
-        self._serving_check()
+        longer). ``num_groups`` and ``global_batch``: as in ``prefill``
+        (the cache is ``init_cache(global_batch, ...)``'s)."""
         lens = cache["len"]
+        split = self._split(lens.shape[0], global_batch)
+        local = self._local_groups(num_groups, rows=not split)
+        seq = self._seq(split)
         x, positions = self._inputs(batch, lens[:, None])       # (B, 1)
         for layer, c in zip(self.layers, cache["layers"]):
-            x, _ = layer(x, positions, c, lens)
+            x, _ = layer(x, positions, c, lens, local, seq)
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
         logits = _mask_pad_vocab(self.cfg, self._logits(x).float())
         return logits, {"len": lens + 1, "layers": cache["layers"]}
@@ -609,8 +722,8 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], num_groups: int = 1):
 
 
 def prefill(model: LM, batch: Dict[str, torch.Tensor], max_len: int,
-            last_index: Optional[torch.Tensor] = None):
-    return model.prefill(batch, max_len, last_index)
+            num_groups: int = 1, last_index: Optional[torch.Tensor] = None):
+    return model.prefill(batch, max_len, num_groups, last_index)
 
 
 def init_cache(model: LM, batch: int, max_len: int) -> Dict[str, Any]:
@@ -618,5 +731,5 @@ def init_cache(model: LM, batch: int, max_len: int) -> Dict[str, Any]:
 
 
 def decode_step(model: LM, cache: Dict[str, Any],
-                batch: Dict[str, torch.Tensor]):
-    return model.decode_step(cache, batch)
+                batch: Dict[str, torch.Tensor], num_groups: int = 1):
+    return model.decode_step(cache, batch, num_groups)

@@ -62,7 +62,10 @@ def map_tree(fn, tree):
 def make_param(meta: ParamMeta, generator: torch.Generator,
                device) -> torch.Tensor:
     """One parameter from its metadata; ``normal`` draws on the generator's
-    device, then moves to ``device``."""
+    device, then moves to ``device``. On the ``meta`` device nothing is
+    drawn (the generator does not advance)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(meta.shape, dtype=meta.dtype, device="meta")
     if meta.init == "zeros":
         return torch.zeros(meta.shape, dtype=meta.dtype, device=device)
     if meta.init == "ones":

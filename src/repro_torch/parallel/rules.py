@@ -10,8 +10,9 @@ One model definition, three deployments:
 (gathered on use); "tp" is tensor parallelism; "expert" places MoE
 experts; "sp" is the sequence/FFT slab axis.
 
-A mesh is a ``DeviceMesh`` whose dim names are the axis names, or a plain
-``{axis: size}`` mapping (the rules need only the sizes). A spec is a
+A mesh is a ``DeviceMesh`` whose dim names are the axis names, a plain
+``{axis: size}`` mapping, or any object whose ``shape`` is such a mapping
+(as a JAX mesh's is): the rules need only the sizes. A spec is a
 tuple with one entry per dim (None, an axis name or a tuple of names);
 ``logical_shardings`` and ``sanitized_shardings`` return trees of
 ``NamedSharding`` (a mesh and a spec), whose ``shard`` and ``gather`` cut
@@ -33,7 +34,11 @@ Spec = Tuple[Any, ...]
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
-    """``{axis: size}`` of a ``DeviceMesh`` or of a mapping."""
+    """``{axis: size}`` of a ``DeviceMesh``, of a mapping or of an object
+    whose ``shape`` is a mapping."""
+    shape = getattr(mesh, "shape", None)
+    if isinstance(shape, Mapping):
+        mesh = shape
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
     return mesh_sizes(mesh)

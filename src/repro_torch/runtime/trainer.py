@@ -129,6 +129,51 @@ def _dp_mesh(mesh, rules: Dict[str, Any]):
     return mesh[dp]._flatten("_".join(dp))
 
 
+def shard_lm(model: LM, mesh, rules: Dict[str, Any],
+             meta: Optional[Dict[str, Any]] = None):
+    """Lay ``model`` out on ``mesh`` by ``rules``, in place: tensor
+    parallelism (``LM.place``, unless the LM is placed already), then,
+    where the rules keep ``fsdp`` (and it is not sharded already, nor a
+    frozen LM on a data axis of one rank: nothing to shard, and FSDP2's
+    per-layer hooks cost a serving step host time), FSDP2 over the dp
+    ranks, every layer and then the root (the shared block of
+    zamba2 with the root: it runs at several places), the LM's and the
+    layers' ``prefill`` and the LM's ``decode_step`` gathering their
+    parameters as ``forward`` does. Returns ({name: MeshLayout}, {name:
+    the process groups its gradient's blocks span})."""
+    from torch.distributed.fsdp import (FSDPModule, fully_shard,
+                                        register_fsdp_forward_method)
+    if model.mesh is None:
+        model.place(mesh, rules, meta)
+    layouts = model.tp_layouts(meta)
+    dp_mesh = _dp_mesh(mesh, rules) if "fsdp" in rules else None
+    if dp_mesh is not None and dp_mesh.size() == 1 and not any(
+            p.requires_grad for p in model.parameters()):
+        dp_mesh = None              # a frozen LM on one data rank: no FSDP
+    if dp_mesh is not None and not isinstance(model, FSDPModule):
+        layers = [layer for layer in dict.fromkeys(model.layers)
+                  if layer is not model.shared]
+        for module in layers + [model]:
+            fully_shard(module, mesh=dp_mesh)
+        for module in layers + [model]:
+            # each rank's loss is its share: sum, do not average
+            module.set_gradient_divide_factor(1.0)
+            module.set_force_sum_reduction_for_comms(True)
+        for layer in layers:
+            register_fsdp_forward_method(layer, "prefill")
+        for method in ("prefill", "decode_step"):
+            register_fsdp_forward_method(model, method)
+    dp_groups = [g for g in model.dp_groups
+                 if torch.distributed.get_world_size(g) > 1]
+    shardings, groups = {}, {}
+    for name, p in model.named_parameters():
+        shardings[name] = MeshLayout(p, model.tp, layouts[name])
+        groups[name] = ((dp_groups if dp_mesh is not None else [])
+                        + ([model.tp.group] if layouts[name] is not None
+                           else []))
+    return shardings, groups
+
+
 def _copy_into(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
     for key, value in dst.items():
         if isinstance(value, dict):
@@ -213,32 +258,9 @@ class Trainer:
         return self.shardings["opt"][part][name].shard(whole)
 
     def _shard(self, model: LM) -> None:
-        """Lay ``model`` out on the mesh: tensor parallelism, then FSDP2
-        over the dp ranks, every layer and then the root (the shared block
-        of zamba2 with the root: it runs at several places)."""
-        from torch.distributed.fsdp import fully_shard
-        model.place(self.mesh, self.rules, self.meta)
-        layouts = model.tp_layouts(self.meta)
-        dp_mesh = _dp_mesh(self.mesh, self.rules)
-        self.shard_groups = {}
-        if dp_mesh is not None:
-            modules = [layer for layer in dict.fromkeys(model.layers)
-                       if layer is not model.shared] + [model]
-            for module in modules:
-                fully_shard(module, mesh=dp_mesh)
-            for module in modules:
-                # each rank's loss is its share: sum, do not average
-                module.set_gradient_divide_factor(1.0)
-                module.set_force_sum_reduction_for_comms(True)
-        dp_groups = [g for g in model.dp_groups
-                     if torch.distributed.get_world_size(g) > 1]
-        params = dict(model.named_parameters())
-        sh = {}
-        for name, p in params.items():
-            sh[name] = MeshLayout(p, model.tp, layouts[name])
-            self.shard_groups[name] = (
-                (dp_groups if dp_mesh is not None else [])
-                + ([model.tp.group] if layouts[name] is not None else []))
+        """Lay ``model`` out on the mesh (``shard_lm``)."""
+        sh, self.shard_groups = shard_lm(model, self.mesh, self.rules,
+                                         self.meta)
         self.shardings = {"params": sh, "opt": {"mu": sh, "nu": sh}}
 
     def restore_or_init(self):

@@ -69,13 +69,15 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
               ROOT / "examples" / "fftconv_lm_torch.py",
               ROOT / "examples" / "serve_lm_torch.py",
               ROOT / "scripts" / "dist_times.py",
-              ROOT / "scripts" / "dist_train.py"]
+              ROOT / "scripts" / "dist_train.py",
+              ROOT / "scripts" / "dist_serve.py"]
     assert {"comm.py", "dfft.py", "api.py", "fftconv.py", "compress.py",
             "lm.py", "serve.py", "olmo_1b.py", "ssm.py",
             "frontend.py", "adamw.py", "pipeline.py", "manager.py",
             "trainer.py", "train.py", "train_lm_torch.py",
             "fftconv_lm_torch.py", "rules.py", "mesh.py",
-            "serve_lm_torch.py", "dist_train.py"} <= {f.name for f in files}
+            "serve_lm_torch.py", "dist_train.py", "specs.py",
+            "dist_serve.py"} <= {f.name for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())

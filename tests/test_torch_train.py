@@ -157,8 +157,8 @@ def test_remat_recomputes_each_fft_conv_once_more(monkeypatch):
         grads[remat] = {n: p.grad for n, p in model.named_parameters()}
     for n, g in grads[True].items():
         assert torch.equal(g, grads[False][n]), n
-    with pytest.raises(NotImplementedError, match="dots"):
-        loss_fn(LM(dataclasses.replace(cfg, remat_policy="dots"),
+    with pytest.raises(NotImplementedError, match="offload"):
+        loss_fn(LM(dataclasses.replace(cfg, remat_policy="offload"),
                    device="cpu"), batch)
 
 
