@@ -186,7 +186,22 @@ run from the root of a checkout. Phases, each of which raises on failure:
    the positions), prefill and decode within 1e-4 of max of rank 0's
    one-device model (whose MoE routing the mesh replays), with two
    controls that must miss (the experts not
-   summed over model; the flash-decoding partials not rescaled).
+   summed over model; the flash-decoding partials not rescaled);
+20. serve the recurrent kinds, zamba2's shared block and the frontends
+   on a (data, model) mesh: (a) zamba2-7b and xlstm-1.3b with phase 16's
+   prompts and weights on a (1, 1) mesh at world size 1 on NCCL through
+   ServeLoop's mesh: every logits row equal to phase 16's, no launch;
+   (b), run on phase 11's four gloo ranks in float32 at full width cut in
+   depth (zamba2-7b's first segment pair, xlstm-1.3b's, qwen2-vl-7b and
+   musicgen-large on two layers fed synthetic embeddings, qwen2-vl's on
+   M-RoPE streams): each on (1, 4), (2, 2) and, at batch 1, (4, 1),
+   prefill and decode within 1e-4 of max of rank 0's one-device model,
+   no launch on any rank; a (2, 2) Trainer step of zamba2 and xlstm, the
+   loss within 1e-4, the gradient norm (and Mamba2's B and C runs' norm)
+   within 1e-3 and every gradient within 1e-3 of max of one
+   device's; controls that must miss (the norms over the inner width per
+   rank, without the all-reduce of the sum of squares; Mamba2's B and C
+   gradients not summed over model).
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
 at the blocks the sharded convolution and one prefill of the FFT-conv LM
@@ -205,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -421,6 +437,43 @@ MESH_B, MESH_S, MESH_STEPS = 4, 2048, 3
 MESH_SERVE_REQUESTS, MESH_SERVE_NEW = 4, 8
 GLOO_SERVE_S, GLOO_PHI_S, GLOO_SERVE_NEW, GLOO_SERVE_TOL = 2048, 512, 4, 1e-4
 GLOO_PHI_LAYERS = 2
+# phase 20: the recurrent kinds, zamba2's shared block and the frontends
+# on a (data, model) mesh. (a) KIND_MESH_MODELS as published with phase
+# 16's traffic (its prompts and weights, KIND_NEW tokens each, bfloat16)
+# through ServeLoop on a (1, 1) mesh at world size 1 on NCCL (build_cell's
+# decode cell, serve profile off): every logits row equal to phase 16's,
+# no kernel launched. (b) over the GLOO_RANKS gloo ranks of phase 11,
+# float32 compute (TF32 off), at full width cut in depth (GLOO_KINDS:
+# zamba2-7b's first segment pair, 6 mamba2 layers and the shared
+# attention block; xlstm-1.3b's, 7 mlstm and 1 slstm; qwen2-vl-7b and
+# musicgen-large on 2 layers, fed synthetic embeddings, qwen2-vl's on
+# M-RoPE streams of a MROPE_GRID^2 image then text), each on (1, 4) and
+# (2, 2) at batch SERVE_BATCH and on (4, 1) at batch 1 (the
+# flash-decoding layout): a prefill of GLOO_KINDS_S positions and
+# GLOO_SERVE_NEW forced decode steps, every logits row within
+# GLOO_SERVE_TOL of max of rank 0's one-device model, no kernel launched
+# on any rank; one (2, 2) Trainer step of the two recurrent models on
+# KINDS_TRAIN_B x GLOO_KINDS_S tokens against rank 0's one device: the
+# loss within KINDS_LOSS_TOL of it, each gradient within KINDS_GRAD_TOL of
+# its max (float32 sums in another order), and the gradient norm that
+# global_norm reads from the ranks' blocks (the Trainer's groups) within
+# KINDS_NORM_TOL of one device's, of the whole tree and of Mamba2's B and
+# C runs alone in each in_proj and conv_w (NormShare counts them once).
+# Controls that must miss: the norms over the whole inner width on each
+# rank's channels alone (no all-reduce of the sum of squares; zamba2 and
+# xlstm served on (1, 4)), Mamba2's B and C gradients, whole on every
+# rank, not summed over model (zamba2's step), and their norm with the
+# NormShare weight dropped (counted on each model rank: sqrt(2) x)
+KIND_MESH_MODELS = ("zamba2-7b", "xlstm-1.3b")
+GLOO_KINDS = (
+    ("zamba2-7b", {"segments": (("mamba2", 6), ("shared_attn", 1)),
+                   "num_layers": 7}),
+    ("xlstm-1.3b", {"segments": (("mlstm", 7), ("slstm", 1)),
+                    "num_layers": 8}),
+    ("qwen2-vl-7b", {"num_layers": 2}),
+    ("musicgen-large", {"num_layers": 2}))
+GLOO_KINDS_S, KINDS_TRAIN_B = 512, 4
+KINDS_LOSS_TOL, KINDS_GRAD_TOL, KINDS_NORM_TOL = 1e-4, 1e-3, 1e-3
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -1965,11 +2018,16 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
         torch.cuda.empty_cache()
         # phase 19 (b) on the same ranks
         extra += gloo_mesh_serve(rank, planner)
+        t20 = time.perf_counter()
+        torch.cuda.empty_cache()
+        # phase 20 (b) on the same ranks
+        extra += gloo_mesh_kinds(rank)
         if rank == 0:
             extra.append(f"gloo{GLOO_RANKS} phases 12-14 took "
                          f"{t18 - t0:.1f} s, phase 18 (c) took "
                          f"{t19 - t18:.1f} s, phase 19 (b) took "
-                         f"{time.perf_counter() - t19:.1f} s")
+                         f"{t20 - t19:.1f} s, phase 20 (b) took "
+                         f"{time.perf_counter() - t20:.1f} s")
             Path(out_path).write_text(json.dumps({"runs": out,
                                                   "extra": extra}))
     finally:
@@ -2646,14 +2704,16 @@ def xlstm_layers(label, name, model, gen, prefill_ms) -> None:
           f"{prefill_ms:.1f} ms [{label}]")
 
 
-def phase_kind(label, name, depth) -> dict:
+def phase_kind(label, name, depth):
     """Serve one model of the other layer kinds (KIND_MODELS): (a) each
     prefill against forward over its prompt within SERVE_TOL; the decode
     path in float32 (``hold_float32``); the embedding paths
     (``phase_embeds``). Prints the bfloat16 run's drift against the
     float32 one, its times, peak and profiles (xlstm: its layers' device
     ops and times, ``xlstm_layers``); returns the drained run's kernel
-    launches."""
+    launches, and for KIND_MESH_MODELS what phase 20 (a) holds the mesh
+    against (the prompts, every served row, the median decode ms), else
+    None."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
@@ -2735,10 +2795,13 @@ def phase_kind(label, name, depth) -> dict:
         phase_profile(label, calls, top=15)
         print(f"serve {name}: took {time.perf_counter() - t0:.1f} s")
     launches = res["launches"]
+    kept = ({"prompts": prompts, "rows": res["rows"],
+             "decode_ms": statistics.median(res["decode_ms"])}
+            if name in KIND_MESH_MODELS else None)
     del model, twin, res, held, cache, calls
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, kept
 
 
 # ---------------------------------------------------------------------------
@@ -3037,9 +3100,11 @@ def phase_training(label, name, cfg, planner, batch: int, seq: int,
 
 
 def step_recorder():
-    """A Trainer that records each step's wall ms, its kernel launches and
-    the parameters it left unchanged (this rank's blocks), and writes no
-    checkpoint (the CPU tests hold the mesh's)."""
+    """A Trainer that records each step's wall ms, its kernel launches,
+    the parameters it left unchanged (this rank's blocks) and, of those,
+    the blocks that stalled below float32's resolution (``stalled``: name
+    -> its reading, ``below_resolution``), and writes no checkpoint (the
+    CPU tests hold the mesh's)."""
     from repro_torch import kernels
     from repro_torch.optim.adamw import local
     from repro_torch.runtime import Trainer
@@ -3048,6 +3113,7 @@ def step_recorder():
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.ms, self.launches, self.unchanged = [], [], []
+            self.stalled = []
 
         def train_step(self, model, opt_state, batch_):
             before = {n: local(p).detach().clone()
@@ -3059,14 +3125,43 @@ def step_recorder():
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t1) * 1e3)
             self.launches.append(kernels.launch_counts())
-            self.unchanged.append(
-                [n for n, p in model.named_parameters()
-                 if torch.equal(local(p), before[n])])
+            same = [n for n, p in model.named_parameters()
+                    if torch.equal(local(p), before[n])]
+            self.unchanged.append(same)
+            readings = {n: below_resolution(self.ocfg, n, before[n], *out[1:])
+                        for n in same}
+            self.stalled.append({n: r for n, r in readings.items()
+                                 if r is not None})
             return out
 
         def save(self, step, model, opt_state):
             pass
     return Recorded
+
+
+def below_resolution(ocfg, name: str, x: torch.Tensor, state: dict,
+                     metrics: dict):
+    """Of a block ``x`` (the float32 parameter before the step) that an
+    AdamW step left unchanged: (elements, its largest |x|, its largest
+    |lr * u|, the least half spacing of float32 at its values) where
+    every element had a gradient (a nonzero first moment) and a step
+    |lr * u| no larger than half the spacing of float32 at its value (so
+    it rounded back), else None. ``u`` is recomputed from the moments
+    after the step as ``optim.adamw.adamw_update`` takes it."""
+    step = state["step"].float()
+    mu, nu = state["mu"][name], state["nu"][name]
+    x = x.float()
+    u = ((mu / (1 - ocfg.b1 ** step))
+         / (torch.sqrt(nu / (1 - ocfg.b2 ** step)) + ocfg.eps)
+         + ocfg.weight_decay * x)
+    move = (metrics["lr"] * u).abs()
+    half = torch.minimum(
+        torch.nextafter(x, torch.full_like(x, math.inf)) - x,
+        x - torch.nextafter(x, torch.full_like(x, -math.inf))) / 2
+    if not (bool((mu != 0).all()) and bool((move <= half).all())):
+        return None
+    return (x.numel(), x.abs().max().item(), move.max().item(),
+            half.min().item())
 
 
 def gathered(tr, tree) -> dict:
@@ -3609,6 +3704,360 @@ def gloo_mesh_serve(rank, planner) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# the recurrent kinds, zamba2's shared block and the frontends on a mesh
+# (phase 20)
+# ---------------------------------------------------------------------------
+
+
+def phase_mesh_kinds(label, name, kept, mesh) -> dict:
+    """Phase 20 (a) for one model: served through ServeLoop on ``mesh``
+    with phase 16's prompts and weights, every row equal to phase 16's
+    (``kept``). Returns the served run's launches (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    with torch.no_grad(), serve_profile_off():
+        model = LM(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(SEED)).to_compute_dtype()
+        res = serve(model, cfg, kept["prompts"], new=KIND_NEW, mesh=mesh)
+    check(sum(res["launches"].values()) == 0,
+          f"{name} served on the (1, 1) mesh launched {res['launches']}")
+    diff = max((a - b).abs().max().item() for rid, rows in
+               kept["rows"].items()
+               for a, b in zip(res["rows"][rid], rows, strict=True))
+    check(diff == 0.0, f"{name} served on the (1, 1) mesh: logits {diff} "
+          "off phase 16's")
+    rows = sum(len(r) for r in res["rows"].values())
+    n = sum(len(t) for t in res["tokens"].values())
+    print(f"serve mesh {name} on a (1, 1) (data, model) mesh (NCCL, world "
+          f"size 1, build_cell's decode cell, serve profile off): "
+          f"{len(kept['prompts'])} requests of {KIND_PROMPT} tokens, "
+          f"{KIND_NEW} new each, {rows} logits rows equal to phase 16's "
+          f"(max diff {diff}); launches {res['launches']} (none); decode "
+          f"{statistics.median(res['decode_ms']):.3f} ms a step (phase 16's "
+          f"{kept['decode_ms']:.3f}); {n / res['seconds']:.1f} tok/s "
+          f"drained; peak {res['peak'] / 2 ** 30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s [{label}]")
+    launches = res["launches"]
+    del model, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kinds_cfg(name, changes):
+    """``name`` at full width cut as ``changes`` says, float32 compute."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), compute_dtype="float32",
+                               **changes)
+
+
+def kinds_inputs(cfg, batch: int, gen):
+    """A prompt of GLOO_KINDS_S positions and GLOO_SERVE_NEW one-position
+    steps: tokens, or a frontend's synthetic embeddings (qwen2-vl's prompt
+    on M-RoPE streams: a MROPE_GRID^2 image, then text), drawn from
+    ``gen`` (the same on every rank)."""
+    from repro_torch.models import mrope_positions, synth_embeddings
+    s, n = GLOO_KINDS_S, GLOO_SERVE_NEW
+    if cfg.frontend:
+        x = synth_embeddings(cfg, batch, s + n, gen)
+        key = "embeds"
+    else:
+        x = torch.randint(0, cfg.vocab_size, (batch, s + n), generator=gen,
+                          device="cuda")
+        key = "tokens"
+    prompt = {key: x[:, :s]}
+    if cfg.rope == "mrope":
+        prompt["positions"] = mrope_positions(batch, s, MROPE_GRID)
+    return prompt, [{key: x[:, i:i + 1]} for i in range(s, s + n)]
+
+
+def rows_of(batch: dict, rows) -> dict:
+    """The rows ``rows`` of every entry of ``batch`` (of each M-RoPE
+    stream)."""
+    return {k: v[:, rows] if k == "positions" else v[rows]
+            for k, v in batch.items()}
+
+
+def per_rank_norm(self, y):
+    """The control: a norm over the whole inner width computed on this
+    rank's channels alone (their mean square, no all-reduce)."""
+    return y.float().square().sum(-1, keepdim=True) * self.size
+
+
+def gloo_kinds_serve(rank, name, cfg, dm, batch) -> str:
+    """Phase 20 (b), one serving case: ``cfg`` on ``dm`` (build_cell's
+    decode cell) against rank 0's one-device model. Returns rank 0's
+    line."""
+    import datetime
+    from unittest import mock
+    import torch.distributed as dist
+    from repro_torch import kernels, make_mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import LM, blocks
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel import NamedSharding
+    t0 = time.perf_counter()
+    max_len = GLOO_KINDS_S + GLOO_SERVE_NEW
+    mesh = make_mesh(dm, ("data", "model"),
+                     timeout=datetime.timedelta(seconds=300),
+                     device_type="cuda")
+    with serve_profile_off():
+        cell = build_cell(cfg, ShapeConfig("serve", max_len, batch,
+                                           "decode"), mesh)
+    prompt, steps = kinds_inputs(cfg, batch, torch.Generator(
+        device="cuda").manual_seed(SEED + 3))
+    split = not (batch % dm[0] == 0 and batch >= dm[0])
+    n = batch // dm[0]
+    first = mesh.get_local_rank("data") * n
+    rows = slice(None) if split else slice(first, first + n)
+
+    def gather(lg):
+        if split or dm[0] == 1:
+            return lg
+        return NamedSharding(mesh, ("data", None, None)).gather(lg)
+
+    def run(m, step, gather, rows=rows):
+        with torch.no_grad(), float32_cache():
+            lg, cache = m.prefill(rows_of(prompt, rows), max_len,
+                                  global_batch=batch)
+            out = [gather(lg)]
+            for one in steps:
+                lg, cache = step(cache, rows_of(one, rows))
+                out.append(gather(lg))
+        return torch.cat(out, 1)[..., :cfg.vocab_size]
+
+    want = None
+    if rank == 0:
+        single = LM(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        want = run(single, single.decode_step, lambda lg: lg, slice(None))
+        del single
+        torch.cuda.empty_cache()
+    model = cell.build(torch.Generator(device="cuda").manual_seed(SEED))
+    check(model.seq_split(batch) == split, "the cache's layout")
+
+    def step(cache, one):
+        return cell.fn(model, cache, one)
+
+    kernels.reset_launch_counts()
+    got = run(model, step, gather)
+    launches = kernels.launch_counts()
+    check(sum(launches.values()) == 0, f"gloo rank {rank} serve {name} on "
+          f"{dm}: launches {launches}, expected none")
+    control = None
+    if dm == (1, GLOO_RANKS) and not cfg.frontend:
+        with mock.patch.object(blocks.TensorParallel, "sum_squares",
+                               per_rank_norm):
+            control = run(model, step, gather)
+    del model
+    torch.cuda.empty_cache()
+    line = None
+    if rank == 0:
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item() / scale
+        check(math.isfinite(err) and err <= GLOO_SERVE_TOL,
+              f"gloo serve {name} on {dm}: err/max {err} > "
+              f"{GLOO_SERVE_TOL}")
+        line = (f"gloo{GLOO_RANKS} serve mesh {name} on {dm} (data, model), "
+                f"float32, batch {batch}, {GLOO_KINDS_S} + {GLOO_SERVE_NEW} "
+                f"positions: {got.shape[1]} logits rows a sequence err/max "
+                f"{err:.3e} (tol {GLOO_SERVE_TOL}) against one device; "
+                f"rank 0 launches {launches} (none)")
+        if control is not None:
+            missed = (control - want).abs().max().item() / scale
+            check(missed > GLOO_SERVE_TOL, f"gloo serve {name} control "
+                  f"(per-rank norm) within {GLOO_SERVE_TOL}: {missed}")
+            line += f"; control (per-rank norm) {missed:.3e}"
+        line += f"; {time.perf_counter() - t0:.1f} s"
+    del got, want, control
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return line
+
+
+def gloo_kinds_train(rank, name, cfg) -> str:
+    """Phase 20 (b), one training step: ``cfg`` through a (2, 2) Trainer
+    against rank 0's one device (the loss, every gradient), and the
+    control (B and C's gradients each rank's own). Returns rank 0's
+    line."""
+    import datetime
+    from unittest import mock
+    import torch.distributed as dist
+    from repro_torch import make_mesh
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import LM, blocks, loss_fn
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    dm = (2, GLOO_RANKS // 2)
+    shape = ShapeConfig("train", GLOO_KINDS_S, KINDS_TRAIN_B, "train")
+    mesh = make_mesh(dm, ("data", "model"),
+                     timeout=datetime.timedelta(seconds=300),
+                     device_type="cuda")
+
+    def step(names=None):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kinds_") as tmp:
+            tr = Trainer(cfg, shape, mesh, TrainerConfig(ckpt_dir=tmp,
+                                                         seed=SEED),
+                         model=LM(cfg, generator=torch.Generator(
+                             device="cuda").manual_seed(SEED)))
+            model, _, _ = tr.init_state()
+            loss, _ = loss_fn(model, tr.batch_at(0), tr.num_groups)
+            loss.backward()
+            mine = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                    for n, p in model.named_parameters()}
+            grads = {n: tr.shardings["params"][n].gather(g)
+                     for n, g in mine.items()
+                     if names is None or n.endswith(names)}
+            norms = mesh_grad_norms(tr, mine)
+        del tr, model, mine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss.item(), grads, norms
+
+    loss, grads, (norm, run_norms) = step()
+    mamba = ("in_proj", "conv_w")
+    with mock.patch.object(blocks.TensorParallel, "sync",
+                           lambda self, w, layout: w):
+        control = step(mamba)[1] if "mamba2" in {
+            k for k, _ in cfg.resolved_segments()} else None
+    line = None
+    if rank == 0:
+        single = LM(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        batch = {k: torch.from_numpy(v).to("cuda").long()
+                 if k in ("tokens", "labels") else
+                 torch.from_numpy(v).to("cuda")
+                 for k, v in SyntheticDataset(cfg, shape, SEED)
+                 .batch_at(0).items()}
+        want, _ = loss_fn(single, batch, dm[0])
+        want.backward()
+        ref = {n: p.grad for n, p in single.named_parameters()}
+        del single
+        loss_err = abs(loss - want.item()) / abs(want.item())
+        errs = {n: ((g - ref[n]).abs().max()
+                    / ref[n].abs().max().clamp(min=1e-30)).item()
+                for n, g in grads.items()}
+        bad, err = max(errs.items(), key=lambda kv: kv[1])
+        check(loss_err <= KINDS_LOSS_TOL and err <= KINDS_GRAD_TOL,
+              f"gloo train {name} on {dm}: loss {loss_err} (tol "
+              f"{KINDS_LOSS_TOL}), gradient {bad} {err} (tol "
+              f"{KINDS_GRAD_TOL})")
+        want = math.sqrt(sum(g.double().square().sum().item()
+                             for g in ref.values()))
+        norm_err = abs(norm - want) / want
+        runs_err, unweighted = {}, {}
+        for n, (got, dropped, layout) in run_norms.items():
+            keep = torch.cat([torch.full((k,), not cut) for k, cut in
+                              layout.runs]).nonzero().squeeze(1)
+            w = ref[n].index_select(layout.dim, keep.to(ref[n].device)
+                                    ).double().norm().item()
+            runs_err[n] = abs(got - w) / w
+            unweighted[n] = abs(dropped - w) / w
+        check(norm_err <= KINDS_NORM_TOL
+              and all(e <= KINDS_NORM_TOL for e in runs_err.values()),
+              f"gloo train {name} on {dm}: gradient norm {norm} against "
+              f"{want} ({norm_err}), B and C runs {runs_err} (tol "
+              f"{KINDS_NORM_TOL})")
+        check(all(e > KINDS_NORM_TOL for e in unweighted.values()),
+              f"gloo train {name} control (B and C's norm without the "
+              f"NormShare weight) within {KINDS_NORM_TOL}: {unweighted}")
+        line = (f"gloo{GLOO_RANKS} train mesh {name} on {dm} (data, model), "
+                f"float32, {KINDS_TRAIN_B} x {GLOO_KINDS_S} tokens, one "
+                f"Trainer step against one device: loss {loss:.6f} err "
+                f"{loss_err:.3e} (tol {KINDS_LOSS_TOL}); {len(errs)} "
+                f"gradients, worst err/max {err:.3e} ({bad}; tol "
+                f"{KINDS_GRAD_TOL}); gradient norm {norm:.6f} err "
+                f"{norm_err:.3e} (tol {KINDS_NORM_TOL})")
+        if runs_err:
+            line += (f"; B and C runs' norm in {len(runs_err)} tensors, "
+                     f"worst err {max(runs_err.values()):.3e}, control "
+                     f"(NormShare weight dropped) least miss "
+                     f"{min(unweighted.values()):.3e}")
+        if control is not None:
+            missed = max(((g - ref[n]).abs().max() / ref[n].abs().max())
+                         .item() for n, g in control.items())
+            check(missed > KINDS_GRAD_TOL, f"gloo train {name} control (B "
+                  f"and C's gradients not summed) within {KINDS_GRAD_TOL}: "
+                  f"{missed}")
+            line += (f"; control (B and C's gradients not summed over "
+                     f"model) {missed:.3e}")
+        line += f"; {time.perf_counter() - t0:.1f} s"
+        del ref, want
+    del grads, control
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return line
+
+
+def mesh_grad_norms(tr, grads: dict) -> tuple:
+    """(the gradient norm that ``global_norm`` reads from this rank's
+    blocks ``grads`` with the Trainer's groups, {name: (the norm of its
+    whole runs alone, the same with the ``NormShare`` weight dropped, its
+    ``blocks.Runs``)} of every tensor with whole runs inside its block:
+    Mamba2's ``in_proj`` and ``conv_w``). Collectives: every rank calls
+    it."""
+    from repro_torch.optim.adamw import NormShare, global_norm, local
+    runs = {}
+    for n, share in tr.shard_groups.items():
+        if isinstance(share, NormShare):
+            whole = local(grads[n]) * (share.weight < 1)
+            runs[n] = (global_norm({n: whole}, {n: share}).item(),
+                       global_norm({n: whole}, {n: share.groups}).item(),
+                       tr.shardings["params"][n].layout)
+    return global_norm(grads, tr.shard_groups).item(), runs
+
+
+def free_host_cache() -> None:
+    """Give back the pinned host blocks that gloo's copies of CUDA tensors
+    leave in PyTorch's caching host allocator (at full width four ranks'
+    cached blocks outgrow the host's memory)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        if hasattr(torch._C, name):
+            getattr(torch._C, name)()
+            return
+
+
+def host_gib() -> float:
+    """This process's resident host memory, GiB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def gloo_mesh_kinds(rank) -> list:
+    """Phase 20 (b) over the gloo ranks: GLOO_KINDS served on (1, 4),
+    (2, 2) and, at batch 1, (4, 1), and the recurrent two trained a step on
+    (2, 2), each against rank 0's one-device model, with the controls.
+    Returns rank 0's lines, each with rank 0's resident host memory after
+    it."""
+    lines = []
+    free_host_cache()
+    for name, changes in GLOO_KINDS:
+        cfg = kinds_cfg(name, changes)
+        what = (f"{name} " + ("+".join(f"{n} {k}" for k, n in
+                                       cfg.resolved_segments())))
+        cases = [functools.partial(gloo_kinds_serve, rank, what, cfg, dm,
+                                   batch)
+                 for dm, batch in (((1, GLOO_RANKS), SERVE_BATCH),
+                                   ((2, GLOO_RANKS // 2), SERVE_BATCH),
+                                   ((GLOO_RANKS, 1), 1))]
+        if name in KIND_MESH_MODELS:
+            cases.append(functools.partial(gloo_kinds_train, rank, what, cfg))
+        for case in cases:
+            line = case()
+            free_host_cache()
+            if line is not None:
+                lines.append(f"{line}; host {host_gib():.1f} GiB")
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3742,9 +4191,10 @@ def main() -> int:
 
     # phase 16: the other layer kinds at full width
     t0 = time.perf_counter()
-    kind_launches = {}
+    kind_launches, kind_kept = {}, {}
     for name, depth in KIND_MODELS:
-        for kernel, n in phase_kind(label, name, depth).items():
+        counts, kind_kept[name] = phase_kind(label, name, depth)
+        for kernel, n in counts.items():
             kind_launches[kernel] = kind_launches.get(kernel, 0) + n
     print(f"LM phase: 16 took {time.perf_counter() - t0:.1f} s")
 
@@ -3814,18 +4264,36 @@ def main() -> int:
         del store, kept
     print(f"LM phase: 19 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 20: the recurrent kinds served on a (data, model) mesh at world
+    # size 1 on NCCL ((b), over four gloo ranks, ran with phase 11)
+    t0 = time.perf_counter()
+    m1, _, store = start_nccl()
+    kinds_mesh_launches = dict.fromkeys(LM_LAYER_LAUNCHES, 0)
+    try:
+        m_dm = make_mesh((1, 1), ("data", "model"))
+        for name in KIND_MESH_MODELS:
+            for kernel, n in phase_mesh_kinds(label, name, kind_kept[name],
+                                              m_dm).items():
+                kinds_mesh_launches[kernel] += n
+    finally:
+        dist.destroy_process_group()
+        del store, kind_kept
+    print(f"LM phase: 20 took {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches in the counted run of every path: the N-D FFT
     # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving
     # (15), the other layer kinds served (16: none, checked there),
     # training (17: the steps of both runs), training on the (1, 1) mesh
     # (18 (a): the steps of both runs), the sharded mixer's forward and
-    # backward (18 (b)), LM serving on the (1, 1) mesh (19 (a))
+    # backward (18 (b)), LM serving on the (1, 1) mesh (19 (a)), the
+    # recurrent kinds served on it (20 (a): none, checked there)
     paths = {"nd_fft": launches, "mixer": mixer_launches,
              "fftconv_fused": fused_launches, "lm_serve": lm_launches,
              "lm_kinds_serve": kind_launches, "lm_train": train_launches,
              "lm_train_mesh": mesh_launches,
              "sharded_conv_grad": sharded_grad_launches,
-             "lm_serve_mesh": serve_mesh_launches}
+             "lm_serve_mesh": serve_mesh_launches,
+             "lm_kinds_serve_mesh": kinds_mesh_launches}
 
     def counts(name):
         by_path = {path: c[name] for path, c in paths.items()}

@@ -23,7 +23,15 @@ phase 16: 4 prompts of 2048 tokens (8192 for the FFT-conv LM), batch 4
   32 / 16 four-step / transpose / complex multiply each), none a decode
   step;
 * olmo-1b on (2, 2) at batch 4 (the batch over the data ranks) and on
-  (4, 1) at batch 1 (each rank caches a quarter of the positions).
+  (4, 1) at batch 1 (each rank caches a quarter of the positions);
+* the other layer kinds as published, each rank its heads (Mamba2's B
+  and C whole): zamba2-7b at all 81 layers on (1, 4) (its shared
+  attention block at every place), xlstm-1.3b at all 48 layers on (1, 4)
+  and (2, 2), qwen2-vl-7b (M-RoPE, text prompts) and musicgen-large on
+  (1, 4); no kernel launched on any rank.
+
+``--runs`` picks the runs whose names contain one of its comma-separated
+words (default: every run).
 
 Each configuration is served first on rank 0's card alone, and every
 other run is fed that run's tokens (teacher forcing): the same weights
@@ -47,6 +55,7 @@ non-zero.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import datetime
@@ -75,6 +84,7 @@ from repro_torch.core.comm import mesh_max  # noqa: E402
 from repro_torch.launch.specs import build_cell  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.optim.adamw import local  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from dist_train import traced  # noqa: E402
@@ -252,24 +262,34 @@ def held(name, mesh, prompts, batch: int, bf16: Served, f32: Served, say,
     return res
 
 
-def timings(name, model, mesh, prompt, max_len: int, say, label) -> None:
+def timings(name, model, mesh, prompt, max_len: int, say, label,
+            batch_size: int = BATCH, trace_prefill: bool = True) -> None:
     """Prefill ms (median of 3, the slowest rank's), and the NCCL share
-    of a traced prefill and decode step on rank 0."""
+    of a traced prefill (unless ``trace_prefill`` is False: an sLSTM
+    prefill is a long host loop of small ops) and decode step on rank 0;
+    the cache of a batch of ``batch_size``."""
     batch = {"tokens": torch.as_tensor(prompt, device="cuda").long()[None]}
     with torch.no_grad():
-        ms, wall = cs.time_variant(lambda: model.prefill(batch, max_len), 3)
+        ms, wall = cs.time_variant(
+            lambda: model.prefill(batch, max_len, global_batch=batch_size),
+            3)
         ms, wall = mesh_max(mesh, ms), mesh_max(mesh, wall)
-        cache = model.init_cache(BATCH, max_len)
+        cache = model.init_cache(batch_size, max_len)
         cache["len"].fill_(len(prompt))
         step = {"tokens": torch.zeros((cache["len"].shape[0], 1),
                                       dtype=torch.long, device="cuda")}
-        pre = traced(lambda: model.prefill(batch, max_len))
-        dec = traced(lambda: model.decode_step(cache, step))
+        pre = (traced(lambda: model.prefill(batch, max_len,
+                                            global_batch=batch_size))
+               if trace_prefill else None)
+        dec = traced(lambda: model.decode_step(cache, step,
+                                               global_batch=batch_size))
     del cache
+    traced_prefill = (f"prefill wall {pre[0]:.1f} ms, busy {pre[1]:.1f}, "
+                      f"NCCL {pre[2]:.1f} ms ({pre[2] / pre[1]:.1%} of "
+                      f"busy); " if pre else "")
     say(f"serve mesh {name} times: prefill {ms:.3f} ms a request (wall "
         f"{wall:.3f}; the slowest rank's median of 3); traced on rank 0: "
-        f"prefill wall {pre[0]:.1f} ms, busy {pre[1]:.1f}, NCCL "
-        f"{pre[2]:.1f} ms ({pre[2] / pre[1]:.1%} of busy); decode step "
+        + traced_prefill + f"decode step "
         f"wall {dec[0]:.3f} ms, busy {dec[1]:.3f}, NCCL {dec[2]:.3f} ms "
         f"({dec[2] / dec[1]:.1%} of busy) [{label}]")
 
@@ -380,7 +400,40 @@ def serve_olmo(mesh, batch: int, what: str, say, label) -> None:
     freed()
 
 
+def serve_kind(name, mesh, batch: int, what: str, say, label) -> None:
+    """``name`` as published served on ``mesh`` (the train rules: a
+    frozen LM on one data rank takes no FSDP2), held as ``held`` holds
+    it, then timed."""
+    cfg = get_config(name)
+    prompts = prompts_of(cfg, PROMPT, SEED + 3)
+    bf16, f32 = whole(cfg)
+    none = dict.fromkeys(cs.LM_LAYER_LAUNCHES, 0)
+    kinds = "+".join(f"{n} {k}" for k, n in cfg.resolved_segments()[:2])
+    t0 = time.perf_counter()
+    model = build_cell(cfg, ShapeConfig("serve", PROMPT + NEW, batch,
+                                        "decode"), mesh).place(bf16())
+    built = mesh_max(mesh, time.perf_counter() - t0)
+    weights = mesh_max(mesh, sum(local(p).numel() * p.element_size()
+                                 for p in model.parameters())) / 2 ** 30
+    say(f"serve mesh {name} {what}: {cfg.num_layers} layers ({kinds}, "
+        f"...), built and placed in {built:.1f} s, {weights:.2f} GiB of "
+        f"weights a card")
+    slstm = any(k == "slstm" for k, _ in cfg.resolved_segments())
+    timings(f"{name} {what}", model, mesh, prompts[0], PROMPT + NEW, say,
+            label, batch, trace_prefill=not slstm)
+    del model
+    freed()
+    held(f"{name} {what}", mesh, prompts, batch, Served(cfg, bf16, bf16),
+         Served(float32_of(cfg), f32, f32, cache32=True), say, label, none)
+    freed()
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--runs", default="",
+                    help="comma-separated words: the runs whose names "
+                         "contain one (default: all)")
+    words = [w for w in ap.parse_args().runs.split(",") if w]
     local_rank = int(os.environ["LOCAL_RANK"])
     torch.cuda.set_device(local_rank)
     dist.init_process_group("nccl", timeout=TIMEOUT)
@@ -403,6 +456,16 @@ def main() -> int:
             make_mesh((world, 1), ("data", "model"), timeout=TIMEOUT), 1,
             "(4, 1) batch 1, flash decoding", say, label),
     }
+    one_by_world = make_mesh((1, world), ("data", "model"), timeout=TIMEOUT)
+    for name in ("zamba2-7b", "xlstm-1.3b", "qwen2-vl-7b", "musicgen-large"):
+        runs[f"{name} (1, 4)"] = (lambda name=name: serve_kind(
+            name, one_by_world, BATCH, "(1, 4)", say, label))
+    runs["xlstm-1.3b (2, 2)"] = lambda: serve_kind(
+        "xlstm-1.3b", make_mesh((world // 2, 2), ("data", "model"),
+                                timeout=TIMEOUT), BATCH, "(2, 2)", say,
+        label)
+    runs = {k: v for k, v in runs.items()
+            if not words or any(w in k for w in words)}
     verdicts = {}
     for name, run in runs.items():
         t0 = time.perf_counter()

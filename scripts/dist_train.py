@@ -7,43 +7,63 @@ run from the root of a checkout on a machine with that many CUDA cards, one
 rank per card over NCCL (every group with a 300 s timeout). Through the
 port's ``Trainer`` (tensor parallelism over ``model``, FSDP2 over
 ``data``; bfloat16 compute, float32 parameters, remat, AdamW warmup 1),
-STEPS steps each, no checkpoint written:
+STEPS steps each (``--steps``), no checkpoint written:
 
 * the FFT-conv LM at olmo-1b's width (its 16 layers ``fftconv_mlp``, the
   hopper planner) on (W, 1), 2 x 8192 tokens a card a step;
 * olmo-1b as published on (W, 1) at 4 x 2048 a card and on (W/2, 2) at
   4 x 2048 a data rank;
+* xlstm-1.3b as published on (W, 1) and (W/2, 2) at 4 x 512 a data rank
+  (mLSTM and sLSTM by heads over ``model``);
+* zamba2-7b on (W/2, 2) at 2 x 2048 a data rank: its first segment pair
+  (6 Mamba2 layers and the shared attention block) held against one
+  card, then all 81 layers, which one card cannot train (about 94 GB of
+  float32 parameters, gradients and AdamW moments);
 * FFTConvMixer(2048, 16) on (4, 8192, 2048) with the sequence sharded over
   (W,): the gradient of sum(y * w) in the input (gathered) and in every
   parameter held on rank 0 against the unsharded mixer's at
   2e-4*max|ref|, and forward + backward timed beside the unsharded
   mixer's on one card (every rank at once, the slowest rank's median).
 
-For each run: finite losses; every parameter changed at every step; the
-first step's loss within LOSS_TOL and grad_norm within NORM_TOL of the
-same model's first step on rank 0's card alone over the same global batch
-(``grad_accum`` = dp, so each microbatch is one data rank's rows); the
+For each run: finite losses; every parameter block changed at every step
+on every rank, save a block whose every element had a gradient and took
+an AdamW step no larger than half the spacing of float32 at its value
+(a one-element FSDP block of a bias, at 1.0, can; each such stall is
+printed with its reading); the first step held against the same model's
+first step on rank 0's card alone over the same global batch
+(``grad_accum`` = dp, so each microbatch is one data rank's rows; not for
+zamba2-7b at full depth): its float32 twin (the same model, mesh and
+placement with float32 compute) within F32_TOL of one card's float32
+step in loss and grad_norm, the bfloat16 loss within LOSS_TOL of one
+card's bfloat16 step, and the bfloat16 grad_norm within NORM_TOL of it or
+else within NOISE_RATIO x one card's own bfloat16-to-float32 distance of
+one card's float32 grad_norm (as dist_serve.py holds its rows); the
 kernel launches of every step on every rank (80 / 96 / 64 four-step /
-transpose / complex multiply for the FFT-conv LM, none for olmo-1b: the
-data ranks run the one-card step on their rows); the step ms of steps
-2-STEPS (each rank's median, the slowest rank's taken), tokens/s of the
-whole mesh, the peak GiB a card (the largest rank's), and the NCCL
-kernels' share of the device time of a traced step on rank 0 beside the
-device's busy share of its wall. Rank 0 prints one line a measurement and
-the card label. Needs CUDA cards.
+transpose / complex multiply for the FFT-conv LM, none for the others);
+the step ms of steps 2-STEPS (each rank's median, the slowest rank's
+taken), tokens/s of the whole mesh, the peak GiB a card (the largest
+rank's), and the NCCL kernels' share of the device time of a traced step
+on rank 0 beside the device's busy share of its wall. Rank 0 prints one
+line a measurement and the card label. ``--runs`` picks the runs whose
+names contain one of its comma-separated words (default: every run).
+Needs CUDA cards.
 
-The limits: on (W, 1) each rank's forward and backward are the one-card
-microbatch's, so only the sums' order differs (float32); on (W/2, 2) the
-bfloat16 matmuls of the tensor-parallel blocks round differently, which
-moves the loss by far less than LOSS_TOL. A fault of the mesh path (a
-missing all-reduce, gradients averaged instead of summed) moves grad_norm
-by a factor, far beyond NORM_TOL.
+The limits: in float32 the mesh and the card differ only in the order of
+their sums, far below F32_TOL; a fault of the mesh path (a missing
+all-reduce, gradients averaged instead of summed, a whole run counted tp
+times in the norm) moves the loss or grad_norm by a factor or by percents,
+far beyond it. In bfloat16 the mesh's matmuls round differently from the
+card's: through xlstm-1.3b's 48 layers that noise alone moves the served
+logits by half their max (PERF.md), so its bfloat16 grad_norm is held by
+the card's own bfloat16 distance, where that is the larger.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import datetime
+import functools
 import gc
 import math
 import os
@@ -69,19 +89,22 @@ from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 
-from chip_smoke import grad_errors, mixer_grads, step_recorder  # noqa: E402
+from chip_smoke import (NOISE_RATIO, grad_errors, mixer_grads,  # noqa: E402
+                        step_recorder)
 
 TIMEOUT = datetime.timedelta(seconds=300)
 SEED, STEPS = 0, 6
 FFTCONV_ROWS, FFTCONV_S = 2, 8192        # a card's rows a step
 OLMO_ROWS, OLMO_S = 4, 2048              # a data rank's rows a step
+XLSTM_ROWS, XLSTM_S = 4, 512
+ZAMBA_ROWS, ZAMBA_S = 2, 2048
 # launches of one FFT-conv layer in a training step with remat
 # (chip_smoke.TRAIN_LAYER_LAUNCHES)
 LAYER_LAUNCHES = {"four_step_fft": 5, "batched_transpose": 6,
                   "complex_multiply": 4, "fftconv_fused": 0}
 MIXER_D, MIXER_RANK, MIXER_B, MIXER_S = 2048, 16, 4, 8192
 GRAD_TOL, REPS = 2e-4, 5
-LOSS_TOL, NORM_TOL = 1e-3, 1e-2
+LOSS_TOL, NORM_TOL, F32_TOL = 1e-3, 1e-2, 1e-3
 
 
 def check(cond: bool, what: str) -> None:
@@ -127,64 +150,122 @@ def run(cfg, planner, shape, mesh, steps: int, accum: int = 1):
         return (*tr.run(steps), tr)
 
 
-def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, say,
-          label) -> None:
-    """STEPS steps of ``cfg`` on ``mesh`` with ``rows`` x ``seq`` tokens a
-    data rank, its first step held against one card's; prints the
+def first_step(cfg, planner, shape, mesh, accum: int = 1) -> dict:
+    """The metrics of the first step of ``cfg`` (``run``), the model freed."""
+    hist = run(cfg, planner, shape, mesh, 1, accum)[2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist[0]
+
+
+def rel(got: float, want: float) -> float:
+    return abs(got - want) / abs(want)
+
+
+def stalls_on_every_rank(name, tr) -> str:
+    """Check that every parameter block on every rank changed at every
+    step, save blocks that stalled below float32's resolution
+    (``chip_smoke.below_resolution``); returns the readings of those."""
+    mine = [[n for n in same if n not in stalled]
+            for same, stalled in zip(tr.unchanged, tr.stalled)]
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (mine, tr.stalled))
+    for r, (stuck, _) in enumerate(ranks):
+        check(not any(stuck), f"{name}: rank {r} parameters unchanged by a "
+              f"step: {[u[:3] for u in stuck]}")
+    return "; ".join(
+        f"rank {r} step {i + 1} {n}: {k} element(s), |x| {x:.6g}, |lr u| "
+        f"{m:.3e} <= half its float32 spacing {h:.3e}"
+        for r, (_, stalled) in enumerate(ranks)
+        for i, step in enumerate(stalled)
+        for n, (k, x, m, h) in step.items())
+
+
+def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, *, say,
+          label, steps: int, against_one: bool = True) -> None:
+    """``steps`` steps of ``cfg`` on ``mesh`` with ``rows`` x ``seq``
+    tokens a data rank, its first step held against one card's (unless
+    ``against_one`` is False): the loss within LOSS_TOL; the float32
+    twin's loss and grad_norm (the same model and placement in float32)
+    within F32_TOL of one card's float32 step; the bfloat16 grad_norm
+    within NORM_TOL of one card's bfloat16 step, or, where one card's own
+    bfloat16 step lies farther from float32 than that, within
+    NOISE_RATIO x that distance from the float32 step. Prints the
     measurement line."""
     t0 = time.perf_counter()
     dp = mesh.size(0)
     shape = ShapeConfig("train", seq, rows * dp, "train")
-    alone = None
-    if dist.get_rank() == 0:
-        alone = run(cfg, planner, shape, None, 1, accum=dp)[2][0]
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    alone = alone32 = None
+    if dist.get_rank() == 0 and against_one:
+        alone = first_step(cfg, planner, shape, None, accum=dp)
+        alone32 = first_step(cfg32, planner, shape, None, accum=dp)
     dist.barrier()
-    gc.collect()            # the one-card run's model, before the peak
+    gc.collect()            # the one-card runs' models, before the peak
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model, opt_state, hist, tr = run(cfg, planner, shape, mesh, STEPS)
+    model, opt_state, hist, tr = run(cfg, planner, shape, mesh, steps)
     losses = [h["loss"] for h in hist]
-    check(len(losses) == STEPS and all(map(math.isfinite, losses)),
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
           f"{name}: losses {losses}")
-    check(not any(tr.unchanged), f"{name}: rank {dist.get_rank()} "
-          f"parameters unchanged by a step: "
-          f"{[u[:3] for u in tr.unchanged]}")
+    stalls = stalls_on_every_rank(name, tr)
     check(all(c == per_step for c in tr.launches),
           f"{name}: rank {dist.get_rank()} launches a step {tr.launches}, "
           f"expected {per_step}")
-    if alone is not None:
-        loss_err = abs(losses[0] - alone["loss"]) / abs(alone["loss"])
-        norm_err = (abs(hist[0]["grad_norm"] - alone["grad_norm"])
-                    / alone["grad_norm"])
-        check(loss_err <= LOSS_TOL and norm_err <= NORM_TOL,
-              f"{name} on {tuple(mesh.mesh.shape)}: first step loss "
-              f"{losses[0]}, grad_norm {hist[0]['grad_norm']} against one "
-              f"card's {alone['loss']}, {alone['grad_norm']}")
-    step_ms = mesh_max(mesh, statistics.median(tr.ms[1:]))
+    tr_ms = tr.ms
+    step_ms = mesh_max(mesh, statistics.median(tr_ms[1:]))
     peak = mesh_max(mesh, torch.cuda.max_memory_allocated() / 2 ** 30)
-    batch = tr.batch_at(STEPS)
+    batch = tr.batch_at(steps)
     wall, busy, nccl = traced(
         lambda: Trainer.train_step(tr, model, opt_state, batch))
+    del model, opt_state, tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    against = ""
+    if against_one:
+        twin = first_step(cfg32, planner, shape, mesh)
+    if alone is not None:
+        g, g1, g32 = hist[0]["grad_norm"], alone["grad_norm"], \
+            alone32["grad_norm"]
+        loss_err, norm_err = rel(losses[0], alone["loss"]), rel(g, g1)
+        twin_loss, twin_norm = (rel(twin["loss"], alone32["loss"]),
+                                rel(twin["grad_norm"], g32))
+        drift_mesh, drift_one = rel(g, g32), rel(g1, g32)
+        at = f"{name} on {tuple(mesh.mesh.shape)}: first step"
+        check(twin_loss <= F32_TOL and twin_norm <= F32_TOL,
+              f"{at} in float32: loss {twin['loss']}, grad_norm "
+              f"{twin['grad_norm']} against one card's {alone32['loss']}, "
+              f"{g32} (tol {F32_TOL})")
+        check(loss_err <= LOSS_TOL, f"{at}: loss {losses[0]} against one "
+              f"card's {alone['loss']} (tol {LOSS_TOL})")
+        check(norm_err <= NORM_TOL or drift_mesh <= NOISE_RATIO * drift_one,
+              f"{at}: grad_norm {g} against one card's {g1} ({norm_err}, "
+              f"tol {NORM_TOL}); from one card's float32 {g32}: {drift_mesh}"
+              f", more than {NOISE_RATIO} x one card's own {drift_one}")
+        against = (
+            f"first step against one card alone ({dp} microbatches): "
+            f"float32 twin loss {twin_loss:.3e}, grad_norm {twin_norm:.3e} "
+            f"(tol {F32_TOL}); bfloat16 loss {loss_err:.3e} (tol "
+            f"{LOSS_TOL}), grad_norm {g:.6f} against {g1:.6f}: "
+            f"{norm_err:.3e} (tol {NORM_TOL}), from one card's float32 "
+            f"{g32:.6f}: {drift_mesh:.3e} against the card's own "
+            f"{drift_one:.3e} (limit {NOISE_RATIO} x); ")
     tokens = shape.global_batch * seq
     busy_share = busy / wall if wall else float("nan")
     nccl_share = nccl / busy if busy else float("nan")
-    against = (f"first step against one card alone ({dp} microbatches): "
-               f"loss {loss_err:.3e} (tol {LOSS_TOL}), grad_norm "
-               f"{norm_err:.3e} (tol {NORM_TOL}); "
-               if alone is not None else "")
     say(f"train {name} on {tuple(mesh.mesh.shape)} (data, model), "
         f"{tokens} tokens a step ({rows} x {seq} a data rank): losses "
         + ", ".join(f"{x:.4f}" for x in losses) + "; " + against
-        + "every parameter changed at every step; rank 0 step ms "
-        f"{', '.join(f'{x:.1f}' for x in tr.ms)}; slowest rank's median of "
-        f"steps 2-{STEPS} {step_ms:.3f} ms, {tokens / (step_ms / 1e3):.0f} "
+        + "every parameter block changed at every step on every rank"
+        + (f" (stalled below float32's resolution: {stalls})" if stalls
+           else "") + "; rank 0 step ms "
+        f"{', '.join(f'{x:.1f}' for x in tr_ms)}; slowest rank's median of "
+        f"steps 2-{steps} {step_ms:.3f} ms, {tokens / (step_ms / 1e3):.0f} "
         f"tokens/s; peak {peak:.2f} GiB a card (largest); launches a step "
         f"{per_step} on every rank (exact); traced step on rank 0: wall "
         f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy_share:.1%}), "
         f"NCCL kernels {nccl:.1f} ms ({nccl_share:.1%} of busy); "
         f"{time.perf_counter() - t0:.1f} s [{label}]")
-    del model, opt_state, tr, batch
-    torch.cuda.empty_cache()
 
 
 def timed(fn, mesh) -> float:
@@ -239,6 +320,18 @@ def sharded_mixer_grad(mesh, planner, say, label) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--runs", default="",
+                    help="comma-separated words: the runs whose names "
+                         "contain one (default: all)")
+    ap.add_argument("--steps", type=int, default=STEPS,
+                    help=f"steps a training run (default {STEPS}; at "
+                         "least 2)")
+    args = ap.parse_args()
+    if args.steps < 2:
+        ap.error("--steps: at least 2 (the times are of steps 2 on)")
+    words = [w for w in args.runs.split(",") if w]
+    steps = args.steps
     local_rank = int(os.environ["LOCAL_RANK"])
     torch.cuda.set_device(local_rank)
     dist.init_process_group("nccl", timeout=TIMEOUT)
@@ -252,18 +345,43 @@ def main() -> None:
     fftconv_lm = dataclasses.replace(
         olmo, segments=(("fftconv_mlp", olmo.num_layers),))
     data_only = make_mesh((world, 1), ("data", "model"), timeout=TIMEOUT)
-    train("FFT-conv LM", fftconv_lm, planner, data_only, FFTCONV_ROWS,
-          FFTCONV_S, {k: v * olmo.num_layers
-                      for k, v in LAYER_LAUNCHES.items()}, say, label)
+    both = (make_mesh((world // 2, 2), ("data", "model"), timeout=TIMEOUT)
+            if world % 2 == 0 else None)
     none = dict.fromkeys(LAYER_LAUNCHES, 0)
-    train("olmo-1b", olmo, None, data_only, OLMO_ROWS, OLMO_S, none, say,
-          label)
-    if world % 2 == 0:
-        both = make_mesh((world // 2, 2), ("data", "model"), timeout=TIMEOUT)
-        train("olmo-1b", olmo, None, both, OLMO_ROWS, OLMO_S, none, say,
-              label)
-    sharded_mixer_grad(make_mesh((world,), ("fft",), timeout=TIMEOUT),
-                       planner, say, label)
+    xlstm, zamba = get_config("xlstm-1.3b"), get_config("zamba2-7b")
+    pair = dataclasses.replace(zamba, num_layers=7, segments=(
+        ("mamba2", 6), ("shared_attn", 1)))
+    fit = functools.partial(train, say=say, label=label, steps=steps)
+    runs = {
+        "zamba2-7b pair (W/2, 2)": lambda: fit(
+            "zamba2-7b first segment pair (6 mamba2 + shared_attn)", pair,
+            None, both, ZAMBA_ROWS, ZAMBA_S, none),
+        "zamba2-7b (W/2, 2)": lambda: fit(
+            "zamba2-7b (81 layers; one card cannot train it)", zamba, None,
+            both, ZAMBA_ROWS, ZAMBA_S, none, against_one=False),
+        "FFT-conv LM (W, 1)": lambda: fit(
+            "FFT-conv LM", fftconv_lm, planner, data_only, FFTCONV_ROWS,
+            FFTCONV_S, {k: v * olmo.num_layers
+                        for k, v in LAYER_LAUNCHES.items()}),
+        "olmo-1b (W, 1)": lambda: fit(
+            "olmo-1b", olmo, None, data_only, OLMO_ROWS, OLMO_S, none),
+        "olmo-1b (W/2, 2)": lambda: fit(
+            "olmo-1b", olmo, None, both, OLMO_ROWS, OLMO_S, none),
+        "sharded mixer": lambda: sharded_mixer_grad(
+            make_mesh((world,), ("fft",), timeout=TIMEOUT), planner, say,
+            label),
+        "xlstm-1.3b (W, 1)": lambda: fit(
+            "xlstm-1.3b", xlstm, None, data_only, XLSTM_ROWS, XLSTM_S, none),
+        "xlstm-1.3b (W/2, 2)": lambda: fit(
+            "xlstm-1.3b", xlstm, None, both, XLSTM_ROWS, XLSTM_S, none),
+    }
+    for name, run in runs.items():
+        if (both is None and "W/2" in name) or (
+                words and not any(w in name for w in words)):
+            continue
+        run()
+        gc.collect()
+        torch.cuda.empty_cache()
     say(label)
     dist.barrier()
     dist.destroy_process_group()

@@ -139,7 +139,7 @@ def cache_abstract(cfg: ArchConfig, batch: int,
                 layers.append({"v_hist": _meta((batch, max_len, cfg.d_model),
                                                torch.bfloat16)})
             else:
-                layers.append(ssm.MIXERS[kind][2](cfg, batch, "meta"))
+                layers.append(ssm.MIXERS[kind].init_state(cfg, batch, "meta"))
     return {"len": _meta((batch,), torch.int32), "layers": layers}
 
 
@@ -156,7 +156,13 @@ def cache_pspecs(cfg: ArchConfig, batch: int, mesh, rules) -> Dict[str, Any]:
     Where ``model`` does not divide the K/V heads the reference shards the
     head dim instead; the port's placed LM then caches, whole, the K/V
     heads that each rank's query heads read (``blocks.cached_kv_heads``),
-    a layout no spec states, and this spec is the reference's.
+    a layout no spec states, and this spec is the reference's. So for the
+    recurrent states: where ``model`` divides the heads, the port's Mamba2
+    convolution state holds its heads' channels and B and C whole (this
+    spec cuts the concatenated dim), and its sLSTM state its heads, each
+    whole (this spec cuts the head dim), as ``ssm.mixer_runs`` cuts the
+    weights; the mLSTM state and Mamba2's SSD state are cut by heads
+    either way.
     """
     dp, tp = rules.get("dp"), rules.get("tp")
     dpn = _axis_size(mesh, dp)

@@ -23,7 +23,10 @@ summed over the axis) and a row-parallel output through ``AllReduce``
 (summed, gradient the identity), its partials cast to ``_reduce_pe(cfg)``
 first. The MoE runs each data rank's tokens as one of the reference's
 ``num_groups`` groups; its dispatch is a scatter into (E, capacity, d)
-buffers and its combine a gather.
+buffers and its combine a gather. ``Runs`` describes how a weight is cut:
+runs along one dim, each cut over ``model`` or whole on every rank (the
+recurrent mixers of ``ssm`` keep some whole inside a cut weight, whose
+gradients ``TensorParallel.sync`` sums over ``model``).
 
 The flash-decoding layout (``SeqShard``): a decode cache whose sequence
 axis is cut over the data ranks. Each rank writes a new token's k/v (or
@@ -120,6 +123,55 @@ class GatherFromRanks(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
+class Runs:
+    """How a weight is laid out over ``model``: its dim ``dim`` is
+    ``runs`` end to end, each (length, cut). A cut run gives each rank
+    its 1/tp block of it, a whole one stands on every rank; a rank holds
+    its share of each run in their order (``w_in``'s v and gate columns:
+    two cut runs; Mamba2's ``in_proj`` columns ``[z | x | B C | dt]``: its
+    heads' z, x and dt, and B and C whole)."""
+    dim: int
+    runs: Tuple[Tuple[int, bool], ...]
+
+    @classmethod
+    def cut(cls, dim: int, *lengths: int) -> "Runs":
+        """``dim`` as runs of ``lengths``, all cut (one: a plain block)."""
+        return cls(dim, tuple((n, True) for n in lengths))
+
+    @property
+    def mixed(self) -> bool:
+        """Whether whole runs stand beside cut ones."""
+        return len({cut for _, cut in self.runs}) > 1
+
+    def local(self, size: int) -> Tuple[int, ...]:
+        """Each run's length on a rank of a ``model`` axis of ``size``."""
+        return tuple(n // size if cut else n for n, cut in self.runs)
+
+    def block(self, t: torch.Tensor, size: int, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s block of the whole ``t``."""
+        pieces = t.split([n for n, _ in self.runs], self.dim)
+        return torch.cat([p.chunk(size, self.dim)[rank] if cut else p
+                          for p, (_, cut) in zip(pieces, self.runs)],
+                         self.dim)
+
+    def join(self, parts) -> torch.Tensor:
+        """The whole tensor from every rank's ``block``, in rank order (a
+        whole run from the first)."""
+        split = [p.split(self.local(len(parts)), self.dim) for p in parts]
+        return torch.cat([torch.cat([s[i] for s in split], self.dim) if cut
+                          else split[0][i]
+                          for i, (_, cut) in enumerate(self.runs)], self.dim)
+
+    def weight(self, size: int) -> torch.Tensor:
+        """Per position of a rank's block along ``dim``: 1 in a cut run,
+        1/size in a whole one (what counts each element once in a sum of
+        squares over the ranks: ``optim.adamw.global_norm``)."""
+        return torch.cat([torch.full((n,), 1.0 if cut else 1.0 / size)
+                          for n, (_, cut) in zip(self.local(size),
+                                                 self.runs)])
+
+
+@dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """This rank's place on the mesh's ``model`` axis: its process group,
     the axis's size and this rank's index on it."""
@@ -134,23 +186,32 @@ class TensorParallel:
         """The sum of every rank's partial ``y``, summed in ``dtype``."""
         return AllReduce.apply(y.to(dtype), (self.group,)).to(y.dtype)
 
-    def block(self, t: torch.Tensor, dim: int,
-              groups: int = 1) -> torch.Tensor:
-        """This rank's block of ``t`` along ``dim``; with ``groups`` the
-        dim is ``groups`` runs end to end and the block takes its share of
-        each (``w_in``'s v and gate columns)."""
-        t = t.unflatten(dim, (groups, -1))
-        t = t.chunk(self.size, dim + 1)[self.rank]
-        return t.flatten(dim, dim + 1)
+    def sum_squares(self, y: torch.Tensor) -> torch.Tensor:
+        """The float32 sum of squares of ``y`` over its last dim, whose
+        channels the ranks hold in blocks: summed over ``model``, and so is
+        its gradient (every rank's channels depend on it)."""
+        ss = y.float().square().sum(-1, keepdim=True)
+        return self.copy(self.reduce(ss, torch.float32))
 
-    def gather(self, t: torch.Tensor, dim: int,
-               groups: int = 1) -> torch.Tensor:
+    def block(self, t: torch.Tensor, layout: Runs) -> torch.Tensor:
+        """This rank's block of the whole ``t`` (``Runs.block``)."""
+        return layout.block(t, self.size, self.rank)
+
+    def gather(self, t: torch.Tensor, layout: Runs) -> torch.Tensor:
         """The whole tensor from every rank's ``block`` (all-gather)."""
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
-        parts = [x.unflatten(dim, (groups, -1)) for x in parts]
-        return torch.cat(parts, dim + 1).flatten(dim, dim + 1)
+        return layout.join(parts)
 
+    def sync(self, w: torch.Tensor, layout: Runs) -> torch.Tensor:
+        """``w``, this rank's block, with the gradient of its whole runs
+        summed over ``model`` (each rank's is that of its own channels)."""
+        if not (layout.mixed and torch.is_grad_enabled()):
+            return w
+        pieces = w.split(layout.local(self.size), layout.dim)
+        return torch.cat([p if cut else self.copy(p)
+                          for p, (_, cut) in zip(pieces, layout.runs)],
+                         layout.dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -756,7 +817,7 @@ class FFTConvMixer(nn.Module):
         gradient summed over ``model``."""
         if self.tp is None:
             return t
-        return self.tp.block(self.tp.copy(t), 0)
+        return self.tp.block(self.tp.copy(t), Runs.cut(0, t.shape[0]))
 
     def project(self, x: torch.Tensor):
         """(v, gate): ``x @ w_in`` split in two (this rank's channels of

@@ -42,14 +42,16 @@ gradient is the sum over its places, as the reference's
 ``params["shared"]`` is.
 
 On a mesh (``LM.place``, which the ``Trainer`` and ``launch.specs``
-call) each rank holds its rows of the batch (the ``dp`` axes) and, where
-the rules shard a weight over ``model``, its block of it: attention
-heads, the MLP's d_ff, the MoE's experts and the FFT-conv mixer's
-channels run tensor-parallel (``blocks``), and the embedding and head,
-whose vocab the rules shard too, are gathered over ``model`` on use. The
-loss is the global one on every rank (``loss_fn``); the MoE's groups are
-split among the data ranks. Tensor parallelism of the other layer kinds
-and of the frontends is not ported yet (``NotImplementedError``).
+call) each rank holds its rows of the batch (the ``dp`` axes) and, over
+``model``, its block of each weight that ``tp_layouts`` cuts: attention
+heads (zamba2's shared block at each of its places too), the MLP's d_ff,
+the MoE's experts and the FFT-conv mixer's channels run tensor-parallel
+(``blocks``), and so do the recurrent mixers by heads (``ssm``, where
+``model`` divides them; Mamba2's B and C whole on every rank); the
+embedding and head, whose vocab the rules shard too, are gathered over
+``model`` on use. A frontend's ``{"embeds"}`` batch enters whole on every
+``model`` rank. The loss is the global one on every rank (``loss_fn``);
+the MoE's groups are split among the data ranks.
 
 Serving on a mesh: ``init_cache`` allocates each rank's block of the
 decode cache (``launch.specs.cache_pspecs`` describes it): the K/V heads
@@ -107,7 +109,7 @@ def _layer_meta(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
                 "ln2": blocks.norm_meta(cfg), "mlp": blocks.mlp_meta(cfg)}
     if kind in RECURRENT:
         return {"ln": blocks.norm_meta(cfg),
-                "mixer": ssm.MIXERS[kind][0](cfg)}
+                "mixer": ssm.MIXERS[kind].meta(cfg)}
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -202,14 +204,12 @@ class Block(nn.Module):
             self.mlp = params("mlp")
 
     def set_tensor_parallel(self, tp: Optional[blocks.TensorParallel]):
-        """Run this layer's attention, MLP or FFT-conv mixer over ``tp``'s
-        ``model`` axis (its parameters already hold this rank's blocks)."""
-        if tp is not None and self.kind not in ("attn_mlp", "attn_moe",
-                                                "fftconv_mlp"):
-            raise NotImplementedError(
-                f"tensor parallelism of {self.kind} layers waits for "
-                "ROADMAP.md, Queue 1 item 2 (tensor parallelism of "
-                "shared_attn, mamba2, mlstm, slstm and the frontends)")
+        """Run this layer over ``tp``'s ``model`` axis (its parameters
+        already hold this rank's blocks); a recurrent mixer that
+        ``ssm.mixer_cut`` leaves whole keeps no ``tp``."""
+        if (self.kind in RECURRENT and tp is not None
+                and not ssm.mixer_cut(self.kind, self.cfg, tp.size)):
+            tp = None
         self.tp = tp
         if self.kind == "fftconv_mlp":
             self.mix.tp = tp
@@ -236,8 +236,8 @@ class Block(nn.Module):
         cfg = self.cfg
         if self.kind in RECURRENT:
             h = blocks.apply_norm(self.ln, cfg, x)
-            out, state = ssm.MIXERS[self.kind][1](self.mixer, cfg, h,
-                                                  state=cache)
+            out, state = ssm.MIXERS[self.kind].fwd(self.mixer, cfg, h,
+                                                   state=cache, tp=self.tp)
             if cache is not None:
                 cache.update(state)
             return x + out, None
@@ -265,8 +265,9 @@ class Block(nn.Module):
         cfg = self.cfg
         if self.kind in RECURRENT:
             h = blocks.apply_norm(self.ln, cfg, x)
-            out, state = ssm.MIXERS[self.kind][1](self.mixer, cfg, h,
-                                                  return_state=True)
+            out, state = ssm.MIXERS[self.kind].fwd(self.mixer, cfg, h,
+                                                   return_state=True,
+                                                   tp=self.tp)
             return x + out, state
         h = blocks.apply_norm(self.ln1, cfg, x)
         if self.kind == "fftconv_mlp":
@@ -405,10 +406,6 @@ class LM(nn.Module):
             self.dp_rank = self.dp_rank * sizes[ax] + mesh.get_local_rank(ax)
             self.dp_size *= sizes[ax]
         if sizes.get("model", 1) > 1 and self.rules.get("tp") == "model":
-            if self.cfg.frontend:
-                raise NotImplementedError(
-                    "tensor parallelism of the frontends waits for "
-                    "ROADMAP.md, Queue 1 item 2")
             self.tp = blocks.TensorParallel(mesh.get_group("model"),
                                             sizes["model"],
                                             mesh.get_local_rank("model"))
@@ -419,7 +416,7 @@ class LM(nn.Module):
             for name, param in self.named_parameters():
                 if layouts[name] is not None:
                     param.data = self.tp.block(param.data,
-                                               *layouts[name]).clone()
+                                               layouts[name]).clone()
         return self
 
     def draw(self, generator: torch.Generator, device) -> "LM":
@@ -434,29 +431,40 @@ class LM(nn.Module):
             for name, m in _flat(model_meta(self.cfg)).items():
                 t = make_param(m, generator, device)
                 if layouts[name] is not None:
-                    t = self.tp.block(t, *layouts[name]).clone()
+                    t = self.tp.block(t, layouts[name]).clone()
                 path, _, leaf = name.rpartition(".")
                 owner = self.get_submodule(path)
                 owner._parameters[leaf] = nn.Parameter(
                     t, requires_grad=owner._parameters[leaf].requires_grad)
         return self
 
-    def tp_layouts(self, meta: Optional[Dict[str, Any]] = None):
-        """``{parameter name: (dim, groups) or None}``: the dim the
-        sanitized rules shard over ``model`` on this LM's mesh (None: whole
-        on every rank), and the number of end-to-end runs it holds
-        (``w_in``'s v and gate: 2; see ``TensorParallel.block``)."""
+    def tp_layouts(self, meta: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Optional[blocks.Runs]]:
+        """``{parameter name: blocks.Runs or None}``: how each parameter is
+        cut over ``model`` on this LM's mesh (None: whole on every rank).
+        A recurrent mixer's weights are cut by heads (``ssm.mixer_runs``);
+        any other weight along the dim the sanitized rules shard over
+        ``model``, as one run (``w_in``: its v and gate columns, two)."""
         from ..parallel.rules import logical_shardings
         meta = meta if meta is not None else model_meta(self.cfg)
-        if self.mesh is None:
+        if self.tp is None:
             return {name: None for name in _flat(meta)}
-        out = {}
+        shapes = {name: m.shape for name, m in _flat(meta).items()}
+        out: Dict[str, Optional[blocks.Runs]] = {}
         for name, sh in _flat(logical_shardings(
                 self.mesh, meta, self.rules)).items():
             dim = next((i for i, ax in enumerate(sh.spec) if ax == "model"),
                        None)
-            out[name] = (None if self.tp is None or dim is None
-                         else (dim, 2 if name.endswith("mix.w_in") else 1))
+            n = None if dim is None else shapes[name][dim]
+            out[name] = (None if dim is None
+                         else blocks.Runs.cut(dim, n // 2, n // 2)
+                         if name.endswith("mix.w_in")
+                         else blocks.Runs.cut(dim, n))
+        for i, layer in enumerate(self.layers):
+            if layer.kind in RECURRENT:
+                runs = ssm.mixer_runs(layer.kind, self.cfg, self.tp.size)
+                out.update({f"layers.{i}.mixer.{k}": v
+                            for k, v in runs.items()})
         return out
 
     @property
@@ -651,7 +659,8 @@ class LM(nn.Module):
                     (rows, n, layer.mix.w_out.shape[0]),
                     dtype=torch.bfloat16, device=dev)})
             else:
-                layers.append(ssm.MIXERS[layer.kind][2](cfg, rows, dev))
+                layers.append(ssm.MIXERS[layer.kind].init_state(
+                    cfg, rows, dev, 1 if layer.tp is None else layer.tp.size))
         return {"len": torch.zeros((rows,), dtype=torch.int32, device=dev),
                 "layers": layers}
 

@@ -18,16 +18,28 @@ and stays a loop over the tokens.
 Every state is float32 with the batch axis first. The sLSTM state is the
 reference's ``(c, n, h, m)`` tuple as a dict of those four names, so that
 a serving loop can index every state the same way.
+
+Tensor parallelism over ``model`` (``tp``, a ``blocks.TensorParallel``)
+cuts each mixer by heads (``mixer_runs``: the layout of every weight): a
+rank holds its heads' columns of the input projections and their rows of
+the output one, runs its heads' recurrence and state, and the partial
+outputs are summed over ``model``. The norms over the whole inner width
+(Mamba2's gated RMSNorm, mLSTM's) all-reduce each rank's float32 sum of
+squares. Mamba2's B and C (one group) stand whole on every rank inside
+the cut ``in_proj`` and ``conv_w``, their gradients summed over
+``model``. Where ``model`` does not divide the heads (``mixer_cut``) the
+mixer runs whole on every rank and its forward is given no ``tp``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .blocks import Runs, TensorParallel, _reduce_pe
 from .config import ArchConfig
 from .params import ParamMeta
 
@@ -140,35 +152,74 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y, pad[:, -(k - 1):, :]
 
 
+def mamba2_runs(cfg: ArchConfig) -> Dict[str, Runs]:
+    """Each weight's layout over ``model``: a rank's heads' z, x and dt
+    columns of ``in_proj`` and rows of ``conv_w`` (B and C whole), its
+    heads' decay, dt bias and skip, its channels of the norm and its rows
+    of ``out_proj``. The reference's rules cut ``in_proj``'s columns
+    contiguously, which would give a rank nothing but z."""
+    di, nh, n = mamba2_dims(cfg)
+    heads = Runs.cut(0, nh)
+    return {"in_proj": Runs(1, ((di, True), (di, True), (2 * n, False),
+                                (nh, True))),
+            "conv_w": Runs(0, ((di, True), (2 * n, False))),
+            "a_log": heads, "dt_bias": heads, "d_skip": heads,
+            "norm": Runs.cut(0, di), "out_proj": Runs.cut(0, di)}
+
+
+def _gated_norm(y: torch.Tensor, width: int,
+                tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``y`` times rsqrt(its mean square over the ``width`` channels +
+    1e-6): with ``tp`` this rank's block of them, the sum of squares
+    all-reduced over ``model``."""
+    if tp is not None:
+        var = tp.sum_squares(y) / width
+    else:
+        var = y.square().mean(-1, keepdim=True)
+    return y * torch.rsqrt(var + 1e-6)
+
+
 def mamba2_fwd(p, cfg: ArchConfig, x: torch.Tensor,
                state: Optional[State] = None, chunk: int = 128,
-               return_state: bool = False
+               return_state: bool = False,
+               tp: Optional[TensorParallel] = None
                ) -> Tuple[torch.Tensor, Optional[State]]:
     """x (B, L, d). state: {"conv": (B, K-1, C), "ssd": (B, H, N, P)} for
     one decode token. Returns (output, the new state, or None when neither
-    a state was given nor ``return_state`` asked)."""
+    a state was given nor ``return_state`` asked). With ``tp`` (the mixer
+    cut, ``p`` a block of the heads: ``mamba2_runs``) H is this rank's
+    heads and C its channels plus B and C."""
     b, l, d = x.shape
-    di, nh, n = mamba2_dims(cfg)
+    di, _, n = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
     dt_ = x.dtype
+    nh_l = p["a_log"].shape[0]
+    di_l = nh_l * hd
+    w_in, conv_w = p["in_proj"], p["conv_w"]
+    if tp is not None:
+        runs = mamba2_runs(cfg)
+        x = tp.copy(x)
+        w_in = tp.sync(w_in, runs["in_proj"])
+        conv_w = tp.sync(conv_w, runs["conv_w"])
 
-    zxbcdt = x @ p["in_proj"].to(dt_)
-    z, xin, bc, dt_pre = torch.split(zxbcdt, [di, di, 2 * n, nh], dim=-1)
-    conv_in = torch.cat([xin, bc], dim=-1)                      # (B,L,di+2n)
+    zxbcdt = x @ w_in.to(dt_)
+    z, xin, bc, dt_pre = torch.split(zxbcdt, [di_l, di_l, 2 * n, nh_l],
+                                     dim=-1)
+    conv_in = torch.cat([xin, bc], dim=-1)                      # (B,L,C)
     conv_out, new_conv = _causal_conv(
-        conv_in.float(), p["conv_w"].float(),
+        conv_in.float(), conv_w.float(),
         None if state is None else state["conv"])
     conv_out = F.silu(conv_out)
-    xc, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
+    xc, bmat, cmat = torch.split(conv_out, [di_l, n, n], dim=-1)
 
     dt = F.softplus(dt_pre.float() + p["dt_bias"].float())     # (B,L,H)
     a = -torch.exp(p["a_log"].float())                          # (H,)
     log_decay = a * dt                                          # <= 0
 
-    xh = xc.reshape(b, l, nh, hd)
+    xh = xc.reshape(b, l, nh_l, hd)
     v = xh * dt[..., None]                                      # fold dt
-    k = bmat[:, :, None, :].expand(b, l, nh, n)                 # shared B
-    q = cmat[:, :, None, :].expand(b, l, nh, n)
+    k = bmat[:, :, None, :].expand(b, l, nh_l, n)               # shared B
+    q = cmat[:, :, None, :].expand(b, l, nh_l, n)
 
     if state is None:
         y, ssd_state = chunked_gla(q, k, v, log_decay, chunk=chunk)
@@ -182,20 +233,24 @@ def mamba2_fwd(p, cfg: ArchConfig, x: torch.Tensor,
         new_state = {"conv": new_conv, "ssd": ssd_state}
 
     y = y + xh * p["d_skip"].float()[:, None]
-    y = y.reshape(b, l, di)
+    y = y.reshape(b, l, di_l)
     # gated RMSNorm (Mamba2)
     y = y * F.silu(z.float())
-    var = y.square().mean(-1, keepdim=True)
-    y = y * torch.rsqrt(var + 1e-6) * p["norm"].float()
-    return y.to(dt_) @ p["out_proj"].to(dt_), new_state
+    y = _gated_norm(y, di, tp) * p["norm"].float()
+    out = y.to(dt_) @ p["out_proj"].to(dt_)
+    if tp is not None:
+        out = tp.reduce(out, _reduce_pe(cfg))
+    return out, new_state
 
 
-def mamba2_init_state(cfg: ArchConfig, batch: int, device=None) -> State:
+def mamba2_init_state(cfg: ArchConfig, batch: int, device=None,
+                      parts: int = 1) -> State:
+    """The zero state; ``parts``: the ranks the heads are cut over."""
     di, nh, n = mamba2_dims(cfg)
     return {
-        "conv": torch.zeros((batch, cfg.conv_kernel - 1, di + 2 * n),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, di // parts + 2 * n),
                             dtype=torch.float32, device=device),
-        "ssd": torch.zeros((batch, nh, n, cfg.ssm_head_dim),
+        "ssd": torch.zeros((batch, nh // parts, n, cfg.ssm_head_dim),
                            dtype=torch.float32, device=device),
     }
 
@@ -228,19 +283,34 @@ def mlstm_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
     }
 
 
+def mlstm_runs(cfg: ArchConfig) -> Dict[str, Runs]:
+    """Each weight's layout over ``model``: a rank's heads' columns of
+    ``w_up``, ``w_gate``, ``wi`` and ``wf``, their ``wq``, ``wk``, ``bi``
+    and ``bf``, its channels of the norm and its rows of ``w_down``."""
+    h, du = cfg.num_heads, 2 * cfg.d_model
+    heads, cols = Runs.cut(0, h), Runs.cut(1, du)
+    return {"w_up": cols, "w_gate": cols, "wq": heads, "wk": heads,
+            "wi": Runs.cut(1, h), "wf": Runs.cut(1, h), "bi": heads,
+            "bf": heads, "norm": Runs.cut(0, du), "w_down": Runs.cut(0, du)}
+
+
 def mlstm_fwd(p, cfg: ArchConfig, x: torch.Tensor,
               state: Optional[State] = None, chunk: int = 128,
-              return_state: bool = False
+              return_state: bool = False,
+              tp: Optional[TensorParallel] = None
               ) -> Tuple[torch.Tensor, Optional[State]]:
     """Chunked-parallel mLSTM: the exponential input gate (its exponent
     capped at 8) folded into k, the sigmoid forget gate as the decay, the
     normalizer as an extra value column. state: {"mlstm": (B, H, dh,
-    dh + 1)} for one decode token."""
+    dh + 1)} for one decode token (with ``tp``, the mixer cut and ``p`` a
+    block of the heads, ``mlstm_runs``: H this rank's heads)."""
     b, l, d = x.shape
-    h = cfg.num_heads
     du = 2 * d
-    dh = du // h
+    dh = du // cfg.num_heads
+    h = p["wq"].shape[0]
     dt_ = x.dtype
+    if tp is not None:
+        x = tp.copy(x)
 
     u = x @ p["w_up"].to(dt_)
     gate = x @ p["w_gate"].to(dt_)
@@ -268,18 +338,22 @@ def mlstm_fwd(p, cfg: ArchConfig, x: torch.Tensor,
         new_state = {"mlstm": s_new}
 
     y = y_aug[..., :dh] / y_aug[..., dh:].abs().clamp(min=1.0)
-    y = y.reshape(b, l, du)
-    var = y.square().mean(-1, keepdim=True)
-    y = y * torch.rsqrt(var + 1e-6) * p["norm"].float()
+    y = y.reshape(b, l, h * dh)
+    y = _gated_norm(y, du, tp) * p["norm"].float()
     y = y.to(dt_) * F.silu(gate)
-    return y @ p["w_down"].to(dt_), new_state
+    out = y @ p["w_down"].to(dt_)
+    if tp is not None:
+        out = tp.reduce(out, _reduce_pe(cfg))
+    return out, new_state
 
 
-def mlstm_init_state(cfg: ArchConfig, batch: int, device=None) -> State:
+def mlstm_init_state(cfg: ArchConfig, batch: int, device=None,
+                     parts: int = 1) -> State:
+    """The zero state; ``parts``: the ranks the heads are cut over."""
     h = cfg.num_heads
     dh = 2 * cfg.d_model // h
-    return {"mlstm": torch.zeros((batch, h, dh, dh + 1), dtype=torch.float32,
-                                 device=device)}
+    return {"mlstm": torch.zeros((batch, h // parts, dh, dh + 1),
+                                 dtype=torch.float32, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +375,16 @@ def slstm_meta(cfg: ArchConfig) -> Dict[str, ParamMeta]:
         "b_gates": ParamMeta((4, h, dh), (None, "tp", None), init="zeros"),
         "w_out": ParamMeta((d, d), ("fsdp", "tp")),
     }
+
+
+def slstm_runs(cfg: ArchConfig) -> Dict[str, Runs]:
+    """Each weight's layout over ``model``: a rank's heads of ``w_gates``,
+    ``r_gates`` (block-diagonal by head: the recurrence needs no
+    collective) and ``b_gates``, and the rows of ``w_out`` that its heads'
+    outputs meet. The reference's rules cut ``w_out``'s columns instead."""
+    h = cfg.slstm_heads
+    return {"w_gates": Runs.cut(2, h), "r_gates": Runs.cut(1, h),
+            "b_gates": Runs.cut(1, h), "w_out": Runs.cut(0, cfg.d_model)}
 
 
 def _slstm_cell(r_gates: torch.Tensor, b_gates: torch.Tensor,
@@ -326,35 +410,45 @@ def _slstm_cell(r_gates: torch.Tensor, b_gates: torch.Tensor,
 
 
 def slstm_fwd(p, cfg: ArchConfig, x: torch.Tensor,
-              state: Optional[State] = None, return_state: bool = False
+              state: Optional[State] = None, return_state: bool = False,
+              tp: Optional[TensorParallel] = None
               ) -> Tuple[torch.Tensor, Optional[State]]:
     """A scan over the tokens from ``state`` ({"c", "n", "h", "m"}, each
     (B, H, dh); the initial state when None). Returns (output, the final
     state, or None when neither a state was given nor ``return_state``
-    asked)."""
+    asked). With ``tp`` (the mixer cut, ``p`` a block of the heads:
+    ``slstm_runs``) H is this rank's heads, and the partial outputs are
+    summed over ``model`` once, after the scan."""
     b, l, d = x.shape
     dt_ = x.dtype
+    parts = 1 if tp is None else tp.size
+    if tp is not None:
+        x = tp.copy(x)
     wx = torch.einsum("bsd,dghe->bsghe", x.float(),
                       p["w_gates"].float())                     # (B,L,4,H,dh)
     given = state
     if state is None:
-        state = slstm_init_state(cfg, b, x.device)
+        state = slstm_init_state(cfg, b, x.device, parts)
     carry = tuple(state[name] for name in SLSTM_STATE)
     r_gates, b_gates = p["r_gates"].float(), p["b_gates"].float()
     hs = []
     for t in range(l):
         carry = _slstm_cell(r_gates, b_gates, wx[:, t], carry)
         hs.append(carry[2])
-    y = torch.stack(hs, 1).reshape(b, l, d)
+    y = torch.stack(hs, 1).reshape(b, l, d // parts)
     out = y.to(dt_) @ p["w_out"].to(dt_)
+    if tp is not None:
+        out = tp.reduce(out, _reduce_pe(cfg))
     if given is None and not return_state:
         return out, None
     return out, dict(zip(SLSTM_STATE, carry))
 
 
-def slstm_init_state(cfg: ArchConfig, batch: int, device=None) -> State:
-    h = cfg.slstm_heads
-    dh = cfg.d_model // h
+def slstm_init_state(cfg: ArchConfig, batch: int, device=None,
+                     parts: int = 1) -> State:
+    """The initial state; ``parts``: the ranks the heads are cut over."""
+    h = cfg.slstm_heads // parts
+    dh = cfg.d_model // cfg.slstm_heads
     state = {name: torch.zeros((batch, h, dh), dtype=torch.float32,
                                device=device) for name in "cnh"}
     state["m"] = torch.full((batch, h, dh), -1e30, dtype=torch.float32,
@@ -362,9 +456,37 @@ def slstm_init_state(cfg: ArchConfig, batch: int, device=None) -> State:
     return state
 
 
-# the mixer of each recurrent layer kind: (meta, forward, initial state)
+class Mixer(NamedTuple):
+    """A recurrent layer kind's mixer: its parameters' meta, its forward,
+    its initial state (``parts``: the ranks its heads are cut over), each
+    weight's layout over ``model`` when cut, and its head count."""
+    meta: Callable
+    fwd: Callable
+    init_state: Callable
+    runs: Callable
+    heads: Callable
+
+
 MIXERS = {
-    "mamba2": (mamba2_meta, mamba2_fwd, mamba2_init_state),
-    "mlstm": (mlstm_meta, mlstm_fwd, mlstm_init_state),
-    "slstm": (slstm_meta, slstm_fwd, slstm_init_state),
+    "mamba2": Mixer(mamba2_meta, mamba2_fwd, mamba2_init_state, mamba2_runs,
+                    lambda cfg: mamba2_dims(cfg)[1]),
+    "mlstm": Mixer(mlstm_meta, mlstm_fwd, mlstm_init_state, mlstm_runs,
+                   lambda cfg: cfg.num_heads),
+    "slstm": Mixer(slstm_meta, slstm_fwd, slstm_init_state, slstm_runs,
+                   lambda cfg: cfg.slstm_heads),
 }
+
+
+def mixer_cut(kind: str, cfg: ArchConfig, size: int) -> bool:
+    """Whether a ``kind`` mixer is cut by heads over a ``model`` axis of
+    ``size`` (else it runs whole on every rank)."""
+    return size > 1 and MIXERS[kind].heads(cfg) % size == 0
+
+
+def mixer_runs(kind: str, cfg: ArchConfig,
+               size: int) -> Dict[str, Optional[Runs]]:
+    """The layout over a ``model`` axis of ``size`` of each weight of a
+    ``kind`` mixer: cut by heads, or (``mixer_cut`` false) None
+    everywhere."""
+    runs = MIXERS[kind].runs(cfg)
+    return runs if mixer_cut(kind, cfg, size) else dict.fromkeys(runs)

@@ -16,14 +16,15 @@ the update runs on each rank's local blocks (``DTensor.to_local()`` where
 FSDP hands out DTensors). ``global_norm`` is the norm of the whole tree:
 each rank sums its local squares and the sums are all-reduced over the
 process groups that shard each tensor, so a tensor whole on the ranks of
-an axis counts once.
+an axis counts once, and so does a slice whole on the ranks that cut the
+rest of its tensor (``NormShare``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -87,17 +88,33 @@ def adamw_init(params: Tensors) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+@dataclasses.dataclass(frozen=True)
+class NormShare:
+    """A tensor's ``groups`` (as in ``global_norm``'s ``shard_groups``)
+    where some of its elements stand whole on the ranks of one of them
+    (Mamba2's B and C columns in a block over ``model``): ``weight``,
+    broadcast to the local block, counts each element's square once over
+    the groups (1/n where n ranks hold the element)."""
+    groups: Tuple[Any, ...]
+    weight: torch.Tensor
+
+
 def global_norm(tree: Tensors,
-                shard_groups: Optional[Mapping[str, Sequence[Any]]] = None
+                shard_groups: Optional[Mapping[str, Any]] = None
                 ) -> torch.Tensor:
     """The float32 L2 norm of every tensor of ``tree`` together.
     ``shard_groups`` maps a name to the process groups whose ranks hold
-    disjoint blocks of that tensor (none: whole on every rank); each rank
-    passes its blocks, and every rank gets the norm of the whole tree."""
+    disjoint blocks of that tensor (none: whole on every rank), or to a
+    ``NormShare``; each rank passes its blocks, and every rank gets the
+    norm of the whole tree."""
     by_groups: Dict[Tuple[Any, ...], torch.Tensor] = {}
     for name, t in tree.items():
-        key = tuple((shard_groups or {}).get(name, ()))
-        sq = torch.sum(torch.square(local(t).float()))
+        entry = (shard_groups or {}).get(name, ())
+        sq = torch.square(local(t).float())
+        if isinstance(entry, NormShare):
+            entry, sq = entry.groups, sq * entry.weight
+        key = tuple(entry)
+        sq = torch.sum(sq)
         by_groups[key] = by_groups[key] + sq if key in by_groups else sq
     total = []
     for groups, sq in by_groups.items():
@@ -110,7 +127,7 @@ def global_norm(tree: Tensors,
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Tensors, params: Tensors,
                  state: Dict[str, Any],
-                 shard_groups: Optional[Mapping[str, Sequence[Any]]] = None
+                 shard_groups: Optional[Mapping[str, Any]] = None
                  ) -> Tuple[Tensors, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: (params, state, {"grad_norm", "lr"}). The parameters
     and the moments are updated in place and returned; ``step`` is a new

@@ -49,12 +49,12 @@ from ..checkpoint import CheckpointManager
 from ..core.comm import mesh_device
 from ..core.plan import Planner, resolve_device
 from ..data import SyntheticDataset
-from ..models.blocks import TensorParallel
+from ..models.blocks import Runs, TensorParallel
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.lm import LM, loss_fn, model_meta
 from ..models.params import axes_size
 from ..optim import AdamWConfig, adamw_init, adamw_update
-from ..optim.adamw import local
+from ..optim.adamw import NormShare, local
 from ..parallel import make_rules, mesh_shape
 
 
@@ -73,32 +73,49 @@ class TrainerConfig:
 
 class MeshLayout:
     """Where a parameter (or its moment) lives on the trainer's mesh: a
-    block over ``model`` (``tp`` and the LM's ``(dim, groups)`` layout, or
+    block over ``model`` (``tp`` and the LM's ``blocks.Runs`` layout, or
     None) cut further by FSDP2 over the data ranks (``ref``: the
     parameter's DTensor). ``gather`` and ``shard`` are the checkpoint's
     (``CheckpointManager.save``/``restore``)."""
 
     def __init__(self, ref: torch.Tensor, tp: Optional[TensorParallel],
-                 layout):
+                 layout: Optional[Runs]):
         self.ref, self.tp, self.layout = ref, tp, layout
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         if hasattr(self.ref, "device_mesh"):
             t = _gather_rows(local(t), self.ref)
         if self.layout is not None:
-            t = self.tp.gather(t, *self.layout)
+            t = self.tp.gather(t, self.layout)
         return t
 
     def shard(self, whole: torch.Tensor) -> torch.Tensor:
         from torch.distributed.tensor import distribute_tensor
         t = whole.to(local(self.ref).device)
         if self.layout is not None:
-            t = self.tp.block(t, *self.layout)
+            t = self.tp.block(t, self.layout)
         if not hasattr(self.ref, "device_mesh"):
             return t
         return distribute_tensor(t.contiguous(), self.ref.device_mesh,
                                  self.ref.placements,
                                  src_data_rank=None).to_local()
+
+    def norm_weight(self) -> Optional[torch.Tensor]:
+        """Where whole runs stand inside a block cut over ``model``: the
+        weight of each element of this rank's local block in the gradient
+        norm (``Runs.weight``, broadcast along its dim and cut to FSDP2's
+        rows), else None."""
+        if self.layout is None or not self.layout.mixed:
+            return None
+        block = local(self.ref)
+        w = self.layout.weight(self.tp.size)
+        if hasattr(self.ref, "device_mesh") and self.layout.dim == 0:
+            rows = -(-self.ref.shape[0] // self.ref.device_mesh.size())
+            first = self.ref.device_mesh.get_local_rank() * rows
+            w = w[first:first + block.shape[0]]
+        shape = [1] * block.dim()
+        shape[self.layout.dim] = -1
+        return w.view(shape).to(block.device)
 
 
 def _gather_rows(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -140,7 +157,9 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
     zamba2 with the root: it runs at several places), the LM's and the
     layers' ``prefill`` and the LM's ``decode_step`` gathering their
     parameters as ``forward`` does. Returns ({name: MeshLayout}, {name:
-    the process groups its gradient's blocks span})."""
+    the process groups its gradient's blocks span, or, for a block that
+    holds whole runs, an ``optim.adamw.NormShare`` of them}), the second
+    ``global_norm``'s ``shard_groups``."""
     from torch.distributed.fsdp import (FSDPModule, fully_shard,
                                         register_fsdp_forward_method)
     if model.mesh is None:
@@ -171,6 +190,9 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
         groups[name] = ((dp_groups if dp_mesh is not None else [])
                         + ([model.tp.group] if layouts[name] is not None
                            else []))
+        weight = shardings[name].norm_weight()
+        if weight is not None:
+            groups[name] = NormShare(tuple(groups[name]), weight)
     return shardings, groups
 
 

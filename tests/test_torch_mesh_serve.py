@@ -25,10 +25,14 @@ and phi3.5-moe on (4, 1) at batch 1, the cache's positions split over the
 data ranks. Controls that must miss: phi3.5-moe on (1, 4) with each
 rank's experts combined without the sum over ``model``, the (4, 1) case
 with each rank's attention partials merged without the rescale to the
-global max. ``init_cache`` on each placed LM allocates what
+global max. zamba2 (Mamba2 and the shared attention) on (1, 4), xlstm
+(mLSTM and sLSTM) on (2, 2) and qwen2-vl (M-RoPE, text) on (4, 1) at
+batch 1 are served too. ``init_cache`` on each placed LM allocates what
 ``cache_pspecs`` describes (the K/V heads a rank reads where ``model``
-does not divide them), and so does ``prefill``; ``Cell.build`` draws each
-rank's blocks of the same weights without the whole model. ``ServeLoop``
+does not divide them; a Mamba2 convolution state of its heads' channels
+and B and C, an sLSTM state of its heads), and so does ``prefill``;
+``Cell.build`` draws each rank's blocks of the same weights without the
+whole model. ``ServeLoop``
 on (1, 4) and (2, 2) picks the one-device loop's tokens.
 """
 
@@ -69,6 +73,10 @@ CASES = {
                                            ("attn_mlp", 1))}, (4, 1), 1,
                   5, 12),
     "flash_phi_4x1": ("phi35_moe_42b", {}, (4, 1), 1, 5, 12),
+    # the recurrent kinds (their states by heads over model) and M-RoPE
+    "zamba2_1x4": ("zamba2_7b", {}, (1, 4), 4, SEQ, 12),
+    "xlstm_2x2": ("xlstm_1_3b", {}, (2, 2), 4, SEQ, 12),
+    "qwen2_vl_4x1": ("qwen2_vl_7b", {}, (4, 1), 1, 5, 12),
 }
 SERVE = {"serve_1x4": (1, 4), "serve_2x2": (2, 2)}
 
@@ -327,13 +335,24 @@ def test_init_cache_allocates_what_cache_pspecs_describes(runs, case):
     heads = iter(r["read_heads"])
     for i, (kind, _) in enumerate(
             (k, None) for k, n in cfg.resolved_segments() for _ in range(n)):
-        if kind in ("attn_mlp", "attn_moe") and cfg.num_kv_heads % dm[1]:
+        if kind in ("attn_mlp", "attn_moe", "shared_attn") and \
+                cfg.num_kv_heads % dm[1]:
             # the K/V heads this rank's query heads read, whole
             h = next(heads)
             for key in ("k", "v"):
                 want[f"{i}.{key}"] = want[f"{i}.{key}"][:2] + [h, cfg.hd]
-        elif kind in ("attn_mlp", "attn_moe"):
+        elif kind in ("attn_mlp", "attn_moe", "shared_attn"):
             next(heads)
+        elif kind == "mamba2" and dm[1] > 1:
+            # its heads' channels and B and C whole (the spec cuts the
+            # concatenation)
+            di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+            want[f"{i}.conv"] = want[f"{i}.conv"][:2] + [di // dm[1] + 2 * n]
+        elif kind == "slstm" and dm[1] > 1:
+            # its heads, each whole (the spec cuts the head dim)
+            for key in "cnhm":
+                want[f"{i}.{key}"] = want[f"{i}.{key}"][:1] + [
+                    cfg.slstm_heads // dm[1], cfg.d_model // cfg.slstm_heads]
     assert r["init_cache"] == want
     assert r["prefill_cache"] == {k: v for k, v in want.items()
                                   if k != "len"}
