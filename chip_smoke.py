@@ -201,7 +201,18 @@ run from the root of a checkout. Phases, each of which raises on failure:
    within 1e-3 and every gradient within 1e-3 of max of one
    device's; controls that must miss (the norms over the inner width per
    rank, without the all-reduce of the sum of squares; Mamba2's B and C
-   gradients not summed over model).
+   gradients not summed over model);
+21. train a GPipe pipeline over pod (build_cell(..., pipeline=True)):
+   (a) olmo-1b as published on a (1, 1, 1) (pod, data, model) mesh at
+   world size 1 on NCCL, 4 x 2048 tokens in 4 microbatches: its float32
+   twin's step (loss, grad_norm, every gradient after the pod sum, the
+   first moment and the parameters after AdamW) against the same step of
+   loss_fn and adamw_update on one device, then three bfloat16 steps
+   timed beside phase 17's and traced, no kernel launched; (b), run on
+   phase 11's four gloo ranks in float32: olmo-1b's width on four layers
+   on (4, 1, 1), (2, 2, 1) and (2, 1, 2), each rank's stage's gradients
+   against one device's, with a control that must miss (the gradients of
+   the parameters whole over pod not summed over pod).
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
 at the blocks the sharded convolution and one prefill of the FFT-conv LM
@@ -474,6 +485,30 @@ GLOO_KINDS = (
     ("musicgen-large", {"num_layers": 2}))
 GLOO_KINDS_S, KINDS_TRAIN_B = 512, 4
 KINDS_LOSS_TOL, KINDS_GRAD_TOL, KINDS_NORM_TOL = 1e-4, 1e-3, 1e-3
+# phase 21: training a GPipe pipeline over pod (build_cell(...,
+# pipeline=True): parallel/pipelined_lm.py). (a) olmo-1b as published
+# (16 layers, d 2048) on a (1, 1, 1) (pod, data, model) mesh at world size
+# 1 on NCCL, OLMO_TRAIN_B x OLMO_TRAIN_S tokens (4 microbatches of one
+# row): its float32 twin's step against the same step on one device
+# (loss_fn, adamw_update) from the same weights: the loss within
+# PIPE_P1_LOSS_TOL of it, grad_norm within PIPE_P1_NORM_TOL, every
+# gradient and the first moment after the step within PIPE_P1_GRAD_TOL of
+# its max (the microbatches' weight gradients are summed in another order
+# than one batch's), each parameter's distance from the one-device step's
+# within MESH_UPDATE_TOL of that step's own update; then PIPE_STEPS bfloat16
+# steps of the cell timed beside phase 17's, no kernel launched. (b) over
+# the GLOO_RANKS gloo ranks of phase 11, float32: olmo-1b at full width cut
+# to GLOO_PIPE_LAYERS layers on each of GLOO_PIPE_MESHES, GLOO_PIPE_B x
+# GLOO_PIPE_S tokens, num_microbatches 4 (build_cell's step, its gradients
+# after the pod sum), against one device on every rank: the loss within
+# GLOO_PIPE_LOSS_TOL, every gradient within GLOO_PIPE_GRAD_TOL of its max;
+# a control that must miss: the whole-over-pod gradients (the tied
+# embedding, the final norm) not summed over pod, on (4, 1, 1)
+PIPE_P1_LOSS_TOL, PIPE_P1_NORM_TOL, PIPE_P1_GRAD_TOL = 1e-6, 1e-5, 1e-4
+PIPE_STEPS = 3
+GLOO_PIPE_LAYERS, GLOO_PIPE_B, GLOO_PIPE_S = 4, 4, 512
+GLOO_PIPE_MESHES = ((4, 1, 1), (2, 2, 1), (2, 1, 2))
+GLOO_PIPE_LOSS_TOL, GLOO_PIPE_GRAD_TOL = 1e-5, 1e-4
 # transpose kernel launches of one call; the four-step's is 1 for each
 # (future_naive and future_opt scatter their rows with torch's copy, agas
 # gathers, strided copies its view inside the four-step op)
@@ -2022,12 +2057,17 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
         torch.cuda.empty_cache()
         # phase 20 (b) on the same ranks
         extra += gloo_mesh_kinds(rank)
+        t21 = time.perf_counter()
+        torch.cuda.empty_cache()
+        # phase 21 (b) on the same ranks
+        extra += gloo_pipeline(rank)
         if rank == 0:
             extra.append(f"gloo{GLOO_RANKS} phases 12-14 took "
                          f"{t18 - t0:.1f} s, phase 18 (c) took "
                          f"{t19 - t18:.1f} s, phase 19 (b) took "
                          f"{t20 - t19:.1f} s, phase 20 (b) took "
-                         f"{time.perf_counter() - t20:.1f} s")
+                         f"{t21 - t20:.1f} s, phase 21 (b) took "
+                         f"{time.perf_counter() - t21:.1f} s")
             Path(out_path).write_text(json.dumps({"runs": out,
                                                   "extra": extra}))
     finally:
@@ -4058,6 +4098,237 @@ def gloo_mesh_kinds(rank) -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# training a GPipe pipeline over pod (phase 21)
+# ---------------------------------------------------------------------------
+
+
+def cell_step(cell, model, opt_state, batch) -> tuple:
+    """(metrics, {name: this rank's block of each gradient AdamW was
+    handed}) of one step of ``cell``'s ``train_step``: for a pipelined
+    cell, the gradients after their sum over pod."""
+    from repro_torch.launch import specs
+    from repro_torch.optim.adamw import local
+    seen = {}
+    update = specs.adamw_update
+
+    def spy(ocfg, grads, params, state, groups=None):
+        seen.update({n: local(g).detach().clone() for n, g in grads.items()})
+        return update(ocfg, grads, params, state, groups)
+    specs.adamw_update = spy
+    try:
+        _, _, metrics = cell.fn(model, opt_state, batch)
+    finally:
+        specs.adamw_update = update
+    return metrics, seen
+
+
+def one_device_step(cfg, batch, whole: bool = True) -> dict:
+    """One float32 step of ``cfg`` on this card alone from SEED's weights:
+    ``loss_fn``, its backward and ``adamw_update`` (build_cell's AdamW
+    config). Returns the loss, grad_norm and gradients, and where
+    ``whole``, the first moment and the parameters before and after."""
+    from repro_torch.models import LM, loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    model = LM(cfg, generator=torch.Generator(device="cuda")
+               .manual_seed(SEED))
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in params.items()}
+    state = adamw_init(params)
+    _, state, om = adamw_update(AdamWConfig(), grads, params, state)
+    out = dict(loss=loss.item(), grad_norm=om["grad_norm"].item(),
+               grads={n: g.detach() for n, g in grads.items()})
+    if whole:
+        out.update(mu=state["mu"], before=before,
+                   after={n: p.detach() for n, p in params.items()})
+    del model, params, state, before
+    return out
+
+
+def update_errors(got: dict, want: dict, before: dict) -> dict:
+    """Per tensor |p - p1| / |p1 - p0| (L2): each parameter's distance
+    after a step from the reference step's, over that step's update."""
+    return {n: ((got[n] - w).norm() / (w - before[n]).norm()).item()
+            for n, w in want.items()}
+
+
+def phase_pipeline(label, olmo, single_ms: float, mesh) -> dict:
+    """Phase 21 (a): build_cell(..., pipeline=True) on the (1, 1, 1) mesh
+    ``mesh``. Returns the bfloat16 steps' launches."""
+    from repro_torch import kernels
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import local
+    t0 = time.perf_counter()
+    shape = ShapeConfig("train", OLMO_TRAIN_S, OLMO_TRAIN_B, "train")
+    batch = train_batch(olmo, OLMO_TRAIN_B, OLMO_TRAIN_S, "cuda")
+    cfg32 = dataclasses.replace(olmo, compute_dtype="float32")
+    want = one_device_step(cfg32, batch)
+    torch.cuda.empty_cache()
+    cell = build_cell(cfg32, shape, mesh, pipeline=True)
+    check(cell.pipelined, "phase 21: build_cell(pipeline=True) on (1, 1, 1)"
+          " gave no pipelined cell")
+    model = cell.build(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = adamw_init(dict(model.named_parameters()))
+    (metrics, grads), launches, seconds = counted(
+        lambda: cell_step(cell, model, opt, batch))
+    after = {n: local(p).detach() for n, p in model.named_parameters()}
+    loss_err = abs(metrics["loss"].item() - want["loss"]) / want["loss"]
+    norm_err = (abs(metrics["grad_norm"].item() - want["grad_norm"])
+                / want["grad_norm"])
+    g_name, g_err = worst(rel_diffs(grads, want["grads"]))
+    m_name, m_err = worst(rel_diffs({n: local(t) for n, t in
+                                     opt["mu"].items()}, want["mu"]))
+    u_name, u_err = worst(update_errors(after, want["after"],
+                                        want["before"]))
+    check(launches == dict.fromkeys(launches, 0), f"phase 21: launches "
+          f"{launches} in a step of attn_mlp layers")
+    check(loss_err <= PIPE_P1_LOSS_TOL and norm_err <= PIPE_P1_NORM_TOL,
+          f"phase 21: loss {metrics['loss'].item()}, grad_norm "
+          f"{metrics['grad_norm'].item()} against one device's "
+          f"{want['loss']}, {want['grad_norm']}")
+    check(g_err <= PIPE_P1_GRAD_TOL and m_err <= PIPE_P1_GRAD_TOL,
+          f"phase 21: gradient {g_name} err/max {g_err}, first moment "
+          f"{m_name} {m_err} > {PIPE_P1_GRAD_TOL}")
+    check(u_err <= MESH_UPDATE_TOL, f"phase 21: parameter {u_name} after "
+          f"the step |p - p1| / |p1 - p0| {u_err} > {MESH_UPDATE_TOL}")
+    del model, opt, grads, after, want, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cell = build_cell(olmo, shape, mesh, pipeline=True)
+    model = cell.build(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = adamw_init(dict(model.named_parameters()))
+    ms, losses, step_launches = [], [], []
+    for _ in range(PIPE_STEPS):
+        (_, _, m), counts, sec = counted(lambda: cell.fn(model, opt, batch))
+        ms.append(sec * 1e3)
+        losses.append(m["loss"].item())
+        step_launches.append(counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall, busy, ops = phase_profile(label, [(
+        f"pipelined olmo-1b training step on (1, 1, 1) {OLMO_TRAIN_B} x "
+        f"{OLMO_TRAIN_S}", lambda: cell.fn(model, opt, batch))], top=15)[0]
+    check(all(map(math.isfinite, losses)), f"phase 21: losses {losses}")
+    check(all(c == dict.fromkeys(c, 0) for c in step_launches),
+          f"phase 21: launches a step {step_launches}")
+    step_ms = statistics.median(ms[1:])
+    print(f"train pipeline olmo-1b on a (1, 1, 1) (pod, data, model) mesh, "
+          f"NCCL world size 1, {OLMO_TRAIN_B} x {OLMO_TRAIN_S} tokens in "
+          f"{OLMO_TRAIN_B} microbatches: float32 twin against one device: "
+          f"loss err/|loss| {loss_err:.3e} (tol {PIPE_P1_LOSS_TOL}), "
+          f"grad_norm {norm_err:.3e} (tol {PIPE_P1_NORM_TOL}), gradients "
+          f"err/max {g_err:.3e} (worst {g_name}), first moment {m_err:.3e} "
+          f"(worst {m_name}) (tol {PIPE_P1_GRAD_TOL}), parameters after "
+          f"the step |p - p1| / |p1 - p0| {u_err:.3e} (worst {u_name}, tol "
+          f"{MESH_UPDATE_TOL}), {seconds:.3f} s; bfloat16 losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; step ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)}, median of steps "
+          f"2-{PIPE_STEPS} {step_ms:.3f} ms ({single_ms:.3f} in phase 17, "
+          f"{step_ms / single_ms:.3f}x), "
+          f"{OLMO_TRAIN_B * OLMO_TRAIN_S / (step_ms / 1e3):.0f} tokens/s; "
+          f"peak {peak:.2f} GiB; launches 0 a step (exact); traced step "
+          f"wall {wall:.1f} ms, busy {busy / wall:.1%}, {ops} device ops; "
+          f"{time.perf_counter() - t0:.1f} s [{label}]")
+    total = {k: sum(c[k] for c in step_launches) for k in step_launches[0]}
+    del model, opt, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    return total
+
+
+def gloo_pipeline(rank) -> list:
+    """Phase 21 (b) over the gloo ranks: olmo-1b at full width on
+    GLOO_PIPE_LAYERS layers, float32, build_cell(..., pipeline=True)'s step
+    on each of GLOO_PIPE_MESHES, every rank holding its stage's gradients
+    against one device's, and the control. Returns rank 0's lines."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import kernels, make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import pipelined_lm
+    free_host_cache()
+    cfg = dataclasses.replace(get_config("olmo-1b"),
+                              num_layers=GLOO_PIPE_LAYERS,
+                              compute_dtype="float32")
+    shape = ShapeConfig("train", GLOO_PIPE_S, GLOO_PIPE_B, "train")
+    batch = train_batch(cfg, GLOO_PIPE_B, GLOO_PIPE_S, "cuda")
+    want = one_device_step(cfg, batch, whole=False)
+    timeout = datetime.timedelta(seconds=300)
+    lines = []
+
+    def run(dm):
+        t0 = time.perf_counter()
+        mesh = make_mesh(dm, ("pod", "data", "model"), timeout=timeout,
+                         device_type="cuda")
+        cell = build_cell(cfg, shape, mesh, pipeline=True)
+        check(cell.pipelined, f"gloo pipeline {dm}: not pipelined")
+        rows = {k: torch.from_numpy(v).long().to("cuda") for k, v in
+                SyntheticDataset(cfg, shape, seed=SEED).sharded_batch_at(
+                    0, mesh, cell.rules).items()}
+        model = cell.build(torch.Generator(device="cuda").manual_seed(SEED))
+        opt = adamw_init(dict(model.named_parameters()))
+        (metrics, grads), launches, _ = counted(
+            lambda: cell_step(cell, model, opt, rows))
+        check(launches == dict.fromkeys(launches, 0), f"gloo rank {rank} "
+              f"pipeline {dm}: launches {launches}")
+        sh = cell.placed["shardings"]
+        errs = {}
+        for n, g in grads.items():
+            whole = sh[n].gather(g)
+            w = want["grads"][model.whole_name(n)]
+            errs[model.whole_name(n)] = ((whole - w).abs().max()
+                                         / w.abs().max()).item()
+        loss_err = abs(metrics["loss"].item() - want["loss"]) / want["loss"]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (loss_err, worst(errs)))
+        del model, opt, grads, cell
+        free_host_cache()
+        return every, time.perf_counter() - t0
+
+    for dm in GLOO_PIPE_MESHES:
+        every, sec = run(dm)
+        loss_err = max(e[0] for e in every)
+        name, err = max((e[1] for e in every), key=lambda x: x[1])
+        check(loss_err <= GLOO_PIPE_LOSS_TOL and err <= GLOO_PIPE_GRAD_TOL,
+              f"gloo pipeline {dm}: loss err {loss_err}, gradient {name} "
+              f"err/max {err} (tol {GLOO_PIPE_LOSS_TOL}, "
+              f"{GLOO_PIPE_GRAD_TOL})")
+        lines.append(
+            f"gloo{GLOO_RANKS} pipeline olmo-1b width on {GLOO_PIPE_LAYERS} "
+            f"layers on {dm} (pod, data, model), float32, {GLOO_PIPE_B} x "
+            f"{GLOO_PIPE_S}: loss err/|loss| {loss_err:.3e} (tol "
+            f"{GLOO_PIPE_LOSS_TOL}), every gradient against one device "
+            f"err/max {err:.3e} (worst {name}, tol {GLOO_PIPE_GRAD_TOL}); "
+            f"launches 0 on every rank; {sec:.1f} s; rank 0 host "
+            f"{host_gib():.1f} GiB")
+    sync = pipelined_lm.sync_pod_grads
+    pipelined_lm.sync_pod_grads = lambda model, grads, mesh: None
+    try:
+        every, _ = run((4, 1, 1))
+    finally:
+        pipelined_lm.sync_pod_grads = sync
+    name, err = max((e[1] for e in every), key=lambda x: x[1])
+    check(err > GLOO_PIPE_GRAD_TOL, f"gloo pipeline control (no pod sum of "
+          f"the whole-over-pod gradients) within the limit: {name} {err}")
+    lines.append(f"gloo{GLOO_RANKS} pipeline control (the whole-over-pod "
+                 f"gradients not summed over pod) on (4, 1, 1): {name} "
+                 f"err/max {err:.3e} (must exceed {GLOO_PIPE_GRAD_TOL})")
+    kernels.reset_launch_counts()
+    del want
+    free_host_cache()
+    return lines if rank == 0 else []
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4280,20 +4551,35 @@ def main() -> int:
         del store, kind_kept
     print(f"LM phase: 20 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 21: the GPipe pipeline over pod at world size 1 on NCCL ((b),
+    # over four gloo ranks, ran with phase 11)
+    t0 = time.perf_counter()
+    m1, _, store = start_nccl()
+    try:
+        pipeline_launches = phase_pipeline(
+            label, olmo, single["olmo-1b"]["step_ms"],
+            make_mesh((1, 1, 1), ("pod", "data", "model")))
+    finally:
+        dist.destroy_process_group()
+        del store
+    print(f"LM phase: 21 took {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches in the counted run of every path: the N-D FFT
     # (phase 3), the mixer (5), the fused kernel's entry (5), LM serving
     # (15), the other layer kinds served (16: none, checked there),
     # training (17: the steps of both runs), training on the (1, 1) mesh
     # (18 (a): the steps of both runs), the sharded mixer's forward and
     # backward (18 (b)), LM serving on the (1, 1) mesh (19 (a)), the
-    # recurrent kinds served on it (20 (a): none, checked there)
+    # recurrent kinds served on it (20 (a): none, checked there), the
+    # pipelined training steps (21 (a): none, checked there)
     paths = {"nd_fft": launches, "mixer": mixer_launches,
              "fftconv_fused": fused_launches, "lm_serve": lm_launches,
              "lm_kinds_serve": kind_launches, "lm_train": train_launches,
              "lm_train_mesh": mesh_launches,
              "sharded_conv_grad": sharded_grad_launches,
              "lm_serve_mesh": serve_mesh_launches,
-             "lm_kinds_serve_mesh": kinds_mesh_launches}
+             "lm_kinds_serve_mesh": kinds_mesh_launches,
+             "lm_train_pipeline": pipeline_launches}
 
     def counts(name):
         by_path = {path: c[name] for path, c in paths.items()}

@@ -23,7 +23,16 @@ STEPS steps each (``--steps``), no checkpoint written:
   (W,): the gradient of sum(y * w) in the input (gathered) and in every
   parameter held on rank 0 against the unsharded mixer's at
   2e-4*max|ref|, and forward + backward timed beside the unsharded
-  mixer's on one card (every rank at once, the slowest rank's median).
+  mixer's on one card (every rank at once, the slowest rank's median);
+* the GPipe pipeline over pod (``build_cell(..., pipeline=True)``'s train
+  cell, its LM drawn by ``Cell.build``; ``--runs pipeline``): olmo-1b as
+  published on (W, 1, 1) and (W/2, 2, 1) (pod, data, model) at 4 x 2048 a
+  data rank; granite-8b's first 4 layers on (W/2, 2, 1) against one card;
+  granite-8b at all 36 layers on (W/2, 2, 1), 4 x 2048 a data rank, which
+  one card cannot train (about 128 GB of float32 parameters, gradients and
+  AdamW moments). Each prints, beside the rest, the bubble: the S - 1 of
+  the M + S - 1 ticks in which a stage computes no microbatch, as that
+  share of the traced step's compute (its device time outside NCCL).
 
 For each run: finite losses; every parameter block changed at every step
 on every rank, save a block whose every element had a gradient and took
@@ -89,8 +98,8 @@ from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 
-from chip_smoke import (NOISE_RATIO, grad_errors, mixer_grads,  # noqa: E402
-                        step_recorder)
+from chip_smoke import (NOISE_RATIO, below_resolution,  # noqa: E402
+                        grad_errors, mixer_grads, step_recorder)
 
 TIMEOUT = datetime.timedelta(seconds=300)
 SEED, STEPS = 0, 6
@@ -98,6 +107,7 @@ FFTCONV_ROWS, FFTCONV_S = 2, 8192        # a card's rows a step
 OLMO_ROWS, OLMO_S = 4, 2048              # a data rank's rows a step
 XLSTM_ROWS, XLSTM_S = 4, 512
 ZAMBA_ROWS, ZAMBA_S = 2, 2048
+GRANITE_ROWS, GRANITE_S = 4, 2048        # a data rank's rows, pipelined
 # launches of one FFT-conv layer in a training step with remat
 # (chip_smoke.TRAIN_LAYER_LAUNCHES)
 LAYER_LAUNCHES = {"four_step_fft": 5, "batched_transpose": 6,
@@ -181,6 +191,37 @@ def stalls_on_every_rank(name, tr) -> str:
         for n, (k, x, m, h) in step.items())
 
 
+def against_one_card(at: str, dp: int, first: dict, twin: dict,
+                     alone: dict, alone32: dict) -> str:
+    """Check a mesh's first step (``first``: bfloat16; ``twin``: float32)
+    against one card's (``alone``, ``alone32``) as ``train`` describes;
+    returns the line's words on it."""
+    g, g1, g32 = first["grad_norm"], alone["grad_norm"], \
+        alone32["grad_norm"]
+    loss_err, norm_err = rel(first["loss"], alone["loss"]), rel(g, g1)
+    twin_loss, twin_norm = (rel(twin["loss"], alone32["loss"]),
+                            rel(twin["grad_norm"], g32))
+    drift_mesh, drift_one = rel(g, g32), rel(g1, g32)
+    at = f"{at}: first step"
+    check(twin_loss <= F32_TOL and twin_norm <= F32_TOL,
+          f"{at} in float32: loss {twin['loss']}, grad_norm "
+          f"{twin['grad_norm']} against one card's {alone32['loss']}, "
+          f"{g32} (tol {F32_TOL})")
+    check(loss_err <= LOSS_TOL, f"{at}: loss {first['loss']} against one "
+          f"card's {alone['loss']} (tol {LOSS_TOL})")
+    check(norm_err <= NORM_TOL or drift_mesh <= NOISE_RATIO * drift_one,
+          f"{at}: grad_norm {g} against one card's {g1} ({norm_err}, "
+          f"tol {NORM_TOL}); from one card's float32 {g32}: {drift_mesh}"
+          f", more than {NOISE_RATIO} x one card's own {drift_one}")
+    return (f"first step against one card alone ({dp} microbatches): "
+            f"float32 twin loss {twin_loss:.3e}, grad_norm {twin_norm:.3e} "
+            f"(tol {F32_TOL}); bfloat16 loss {loss_err:.3e} (tol "
+            f"{LOSS_TOL}), grad_norm {g:.6f} against {g1:.6f}: "
+            f"{norm_err:.3e} (tol {NORM_TOL}), from one card's float32 "
+            f"{g32:.6f}: {drift_mesh:.3e} against the card's own "
+            f"{drift_one:.3e} (limit {NOISE_RATIO} x); ")
+
+
 def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, *, say,
           label, steps: int, against_one: bool = True) -> None:
     """``steps`` steps of ``cfg`` on ``mesh`` with ``rows`` x ``seq``
@@ -225,31 +266,8 @@ def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, *, say,
     if against_one:
         twin = first_step(cfg32, planner, shape, mesh)
     if alone is not None:
-        g, g1, g32 = hist[0]["grad_norm"], alone["grad_norm"], \
-            alone32["grad_norm"]
-        loss_err, norm_err = rel(losses[0], alone["loss"]), rel(g, g1)
-        twin_loss, twin_norm = (rel(twin["loss"], alone32["loss"]),
-                                rel(twin["grad_norm"], g32))
-        drift_mesh, drift_one = rel(g, g32), rel(g1, g32)
-        at = f"{name} on {tuple(mesh.mesh.shape)}: first step"
-        check(twin_loss <= F32_TOL and twin_norm <= F32_TOL,
-              f"{at} in float32: loss {twin['loss']}, grad_norm "
-              f"{twin['grad_norm']} against one card's {alone32['loss']}, "
-              f"{g32} (tol {F32_TOL})")
-        check(loss_err <= LOSS_TOL, f"{at}: loss {losses[0]} against one "
-              f"card's {alone['loss']} (tol {LOSS_TOL})")
-        check(norm_err <= NORM_TOL or drift_mesh <= NOISE_RATIO * drift_one,
-              f"{at}: grad_norm {g} against one card's {g1} ({norm_err}, "
-              f"tol {NORM_TOL}); from one card's float32 {g32}: {drift_mesh}"
-              f", more than {NOISE_RATIO} x one card's own {drift_one}")
-        against = (
-            f"first step against one card alone ({dp} microbatches): "
-            f"float32 twin loss {twin_loss:.3e}, grad_norm {twin_norm:.3e} "
-            f"(tol {F32_TOL}); bfloat16 loss {loss_err:.3e} (tol "
-            f"{LOSS_TOL}), grad_norm {g:.6f} against {g1:.6f}: "
-            f"{norm_err:.3e} (tol {NORM_TOL}), from one card's float32 "
-            f"{g32:.6f}: {drift_mesh:.3e} against the card's own "
-            f"{drift_one:.3e} (limit {NOISE_RATIO} x); ")
+        against = against_one_card(f"{name} on {tuple(mesh.mesh.shape)}",
+                                   dp, hist[0], twin, alone, alone32)
     tokens = shape.global_batch * seq
     busy_share = busy / wall if wall else float("nan")
     nccl_share = nccl / busy if busy else float("nan")
@@ -265,6 +283,141 @@ def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, *, say,
         f"{per_step} on every rank (exact); traced step on rank 0: wall "
         f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy_share:.1%}), "
         f"NCCL kernels {nccl:.1f} ms ({nccl_share:.1%} of busy); "
+        f"{time.perf_counter() - t0:.1f} s [{label}]")
+
+
+class CellRun:
+    """``steps`` steps of ``build_cell(cfg, shape, mesh, pipeline=True)``'s
+    train cell (its LM drawn by ``Cell.build`` from SEED's generator, as
+    the Trainer draws it), each on this rank's rows of the Trainer's
+    dataset at that step, recorded as ``step_recorder`` records a
+    Trainer's: ``ms``, ``launches``, ``unchanged`` and ``stalled``
+    blocks, and the metrics of each step (``hist``)."""
+
+    def __init__(self, cfg, shape, mesh, steps: int):
+        from repro_torch.data import SyntheticDataset
+        from repro_torch.launch.specs import build_cell
+        from repro_torch.optim import adamw_init
+        from repro_torch.optim.adamw import local
+        from repro_torch import kernels
+        self.cell = build_cell(cfg, shape, mesh, pipeline=True)
+        check(self.cell.pipelined, f"{cfg.name} on {tuple(mesh.mesh.shape)}"
+              ": build_cell gave no pipelined cell")
+        self.model = self.cell.build(torch.Generator(device="cuda")
+                                     .manual_seed(SEED))
+        self.opt = adamw_init(dict(self.model.named_parameters()))
+        self.data = SyntheticDataset(cfg, shape, seed=SEED)
+        self.mesh = mesh
+        self.ms, self.launches, self.unchanged, self.stalled = [], [], [], []
+        self.hist = []
+        for step in range(steps):
+            batch = self.batch_at(step)
+            before = {n: local(p).detach().clone()
+                      for n, p in self.model.named_parameters()}
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            _, _, metrics = self.cell.fn(self.model, self.opt, batch)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t1) * 1e3)
+            self.launches.append(kernels.launch_counts())
+            self.hist.append({k: float(v) for k, v in metrics.items()})
+            same = [n for n, p in self.model.named_parameters()
+                    if torch.equal(local(p), before[n])]
+            self.unchanged.append(same)
+            readings = {n: below_resolution(AdamWConfig(), n, before[n],
+                                            self.opt, metrics)
+                        for n in same}
+            self.stalled.append({n: r for n, r in readings.items()
+                                 if r is not None})
+
+    def batch_at(self, step: int) -> dict:
+        out = {}
+        for k, a in self.data.sharded_batch_at(step, self.mesh,
+                                               self.cell.rules).items():
+            out[k] = torch.from_numpy(a).long().to("cuda")
+        return out
+
+    def step(self, batch) -> None:
+        self.cell.fn(self.model, self.opt, batch)
+
+
+def pipeline_first_step(cfg, shape, mesh) -> dict:
+    """The metrics of the first step of ``cfg``'s pipelined cell, the
+    model freed."""
+    first = CellRun(cfg, shape, mesh, 1).hist[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first
+
+
+def train_pipeline(name, cfg, mesh, rows: int, seq: int, *, say, label,
+                   steps: int, against_one: bool = True) -> None:
+    """``steps`` steps of ``cfg``'s pipelined train cell on ``mesh`` (pod,
+    data, model) with ``rows`` x ``seq`` tokens a data rank, checked as
+    ``train`` checks a Trainer's (no kernel launched), its first step held
+    against one card's unless ``against_one`` is False. Prints step ms,
+    tokens/s, the peak a card, the NCCL share of a traced step and the
+    bubble: the (S - 1) of M + S - 1 ticks that compute no microbatch, a
+    share of the traced step's compute (its device time outside NCCL)."""
+    from repro_torch.parallel.pipelined_lm import (NUM_MICROBATCHES,
+                                                   microbatches)
+    t0 = time.perf_counter()
+    pods, dp = mesh.size(0), mesh.size(1)
+    shape = ShapeConfig("train", seq, rows * dp, "train")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    alone = alone32 = None
+    if dist.get_rank() == 0 and against_one:
+        alone = first_step(cfg, None, shape, None, accum=dp)
+        alone32 = first_step(cfg32, None, shape, None, accum=dp)
+    dist.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = CellRun(cfg, shape, mesh, steps)
+    losses = [h["loss"] for h in run.hist]
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"{name}: losses {losses}")
+    stalls = stalls_on_every_rank(name, run)
+    none = dict.fromkeys(LAYER_LAUNCHES, 0)
+    check(all(c == none for c in run.launches), f"{name}: rank "
+          f"{dist.get_rank()} launches a step {run.launches}, expected none")
+    step_ms = mesh_max(mesh, statistics.median(run.ms[1:]))
+    peak = mesh_max(mesh, torch.cuda.max_memory_allocated() / 2 ** 30)
+    batch = run.batch_at(steps)
+    wall, busy, nccl = traced(lambda: run.step(batch))
+    first = run.hist[0]
+    ms = run.ms
+    del run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    against = ""
+    if against_one:
+        twin = pipeline_first_step(cfg32, shape, mesh)
+    if alone is not None:
+        against = against_one_card(f"{name} on {tuple(mesh.mesh.shape)}",
+                                   dp, first, twin, alone, alone32)
+    m = microbatches(rows, NUM_MICROBATCHES)
+    ticks = m + pods - 1
+    compute = busy - nccl
+    bubble = compute * (pods - 1) / ticks
+    tokens = shape.global_batch * seq
+    say(f"train pipeline {name} on {tuple(mesh.mesh.shape)} (pod, data, "
+        f"model), {tokens} tokens a step ({rows} x {seq} a data rank, {m} "
+        f"microbatches, {pods} stages, {ticks} ticks): losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; " + against
+        + "every parameter block changed at every step on every rank"
+        + (f" (stalled below float32's resolution: {stalls})" if stalls
+           else "") + "; rank 0 step ms "
+        f"{', '.join(f'{x:.1f}' for x in ms)}; slowest rank's median of "
+        f"steps 2-{steps} {step_ms:.3f} ms, {tokens / (step_ms / 1e3):.0f} "
+        f"tokens/s; peak {peak:.2f} GiB a card (largest); launches 0 a step "
+        f"on every rank (exact); traced step on rank 0: wall {wall:.1f} ms,"
+        f" device busy {busy:.1f} ms ({busy / wall:.1%}), NCCL kernels "
+        f"{nccl:.1f} ms ({nccl / busy:.1%} of busy); bubble "
+        f"{pods - 1}/{ticks} of its compute {compute:.1f} ms: {bubble:.1f} "
+        f"ms ({bubble / wall:.1%} of the wall, (S-1)/M = "
+        f"{(pods - 1) / m:.3f} of the useful compute); "
         f"{time.perf_counter() - t0:.1f} s [{label}]")
 
 
@@ -352,6 +505,14 @@ def main() -> None:
     pair = dataclasses.replace(zamba, num_layers=7, segments=(
         ("mamba2", 6), ("shared_attn", 1)))
     fit = functools.partial(train, say=say, label=label, steps=steps)
+    pipe = functools.partial(train_pipeline, say=say, label=label,
+                             steps=steps)
+    pods = make_mesh((world, 1, 1), ("pod", "data", "model"),
+                     timeout=TIMEOUT)
+    pods_data = (make_mesh((world // 2, 2, 1), ("pod", "data", "model"),
+                           timeout=TIMEOUT) if world % 2 == 0 else None)
+    granite = get_config("granite-8b")
+    granite4 = dataclasses.replace(granite, num_layers=4)
     runs = {
         "zamba2-7b pair (W/2, 2)": lambda: fit(
             "zamba2-7b first segment pair (6 mamba2 + shared_attn)", pair,
@@ -374,6 +535,16 @@ def main() -> None:
             "xlstm-1.3b", xlstm, None, data_only, XLSTM_ROWS, XLSTM_S, none),
         "xlstm-1.3b (W/2, 2)": lambda: fit(
             "xlstm-1.3b", xlstm, None, both, XLSTM_ROWS, XLSTM_S, none),
+        "pipeline olmo-1b (W, 1, 1)": lambda: pipe(
+            "olmo-1b", olmo, pods, OLMO_ROWS, OLMO_S),
+        "pipeline olmo-1b (W/2, 2, 1)": lambda: pipe(
+            "olmo-1b", olmo, pods_data, OLMO_ROWS, OLMO_S),
+        "pipeline granite-8b 4 layers (W/2, 2, 1)": lambda: pipe(
+            "granite-8b first 4 layers", granite4, pods_data, GRANITE_ROWS,
+            GRANITE_S),
+        "pipeline granite-8b (W/2, 2, 1)": lambda: pipe(
+            "granite-8b (36 layers; one card cannot train it)", granite,
+            pods_data, GRANITE_ROWS, GRANITE_S, against_one=False),
     }
     for name, run in runs.items():
         if (both is None and "W/2" in name) or (

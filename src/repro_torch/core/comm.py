@@ -100,7 +100,9 @@ def make_mesh(shape: Sequence[int], names: Sequence[str],
     unless ``device_type="cuda"`` asks gloo to carry CUDA tensors (staged
     through host memory; several ranks on one card, which NCCL refuses).
     Every rank of the default group must call it with the same arguments;
-    a rank outside ``ranks`` gets None."""
+    a rank outside ``ranks`` gets None. The ``fake`` backend (one process
+    standing for every rank, its collectives no-ops:
+    ``launch.dryrun``) makes a CPU mesh."""
     from torch.distributed.device_mesh import DeviceMesh
     shape, names = tuple(int(s) for s in shape), tuple(names)
     if len(shape) != len(names):
@@ -114,12 +116,13 @@ def make_mesh(shape: Sequence[int], names: Sequence[str],
         # a group numbers its ranks in ascending order: coordinates must too
         raise ValueError(f"mesh ranks must ascend, got {members}")
     backend = dist.get_backend()
-    if backend not in ("nccl", "gloo"):
-        raise ValueError(f"the mesh runs on nccl or gloo, not {backend}")
+    if backend not in ("nccl", "gloo", "fake"):
+        raise ValueError(f"the mesh runs on nccl, gloo or fake, not "
+                         f"{backend}")
     if device_type is None:
         device_type = "cuda" if backend == "nccl" else "cpu"
     elif (backend, device_type) not in (("nccl", "cuda"), ("gloo", "cpu"),
-                                        ("gloo", "cuda")):
+                                        ("gloo", "cuda"), ("fake", "cpu")):
         raise ValueError(f"{backend} does not carry {device_type} tensors")
     rank = dist.get_rank()
     layout = torch.tensor(members).reshape(shape)

@@ -15,9 +15,12 @@ rank's block of every other argument.
       of a cache of ``shape.global_batch`` sequences (``LM.seq_split``)
 
 with the MoE's ``num_groups`` = the data-parallel size, as in the
-reference. ``REPRO_SERVE_WEIGHT_STATIONARY`` picks the ``serve`` profile
-for prefill and decode cells, ``REPRO_REMAT_POLICY`` the remat policy of
-train cells.
+reference. ``build_cell(..., pipeline=True)`` on a mesh with ``pod`` gives
+a train cell of a uniform ``attn_mlp`` stack whose step runs the layers as
+a GPipe pipeline over ``pod`` (``parallel.pipelined_lm``): each pod rank's
+LM holds its stage's layers alone. ``REPRO_SERVE_WEIGHT_STATIONARY``
+picks the ``serve`` profile for prefill and decode cells,
+``REPRO_REMAT_POLICY`` the remat policy of train cells.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ class Cell:
     skip_reason: Optional[str] = None
     mesh: Any = None
     rules: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # a train cell whose layer stack runs as a GPipe pipeline over pod:
+    # each pod rank's LM holds its stage's layers alone
+    pipelined: bool = False
     # what ``place`` learnt that the train step needs: the process groups
     # each gradient's blocks span
     placed: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -60,28 +66,51 @@ class Cell:
         those of ``LM(arch, generator=generator)``, drawn a parameter at a
         time and cut to this rank's block at once (``LM.draw``): a rank
         never holds the whole model (phi3.5-moe's bf16 weights pass a
-        card)."""
+        card). A pipelined cell's LM holds this rank's stage alone, drawn
+        as the whole LM's layers are."""
         from ..core.comm import mesh_device
         model = LM(self.arch, planner=planner, device="meta")
+        self._stage(model)
         model.place(self.mesh, self.rules)
         return self.place(model.draw(generator, mesh_device(self.mesh)))
 
-    def place(self, model: LM) -> LM:
+    def place(self, model: LM, fsdp: bool = True) -> LM:
         """Lay ``model``, a whole LM of ``arch`` on this rank's device (or
         one ``build`` placed), out on the mesh as the cell's steps expect
         (``runtime.trainer.shard_lm``), in place. A prefill or decode
         cell's model is frozen (no gradients; FSDP2 then takes its mixed
         dtypes, and skips a data axis of one rank, where it has nothing
-        to shard)."""
+        to shard). A pipelined cell cuts a whole LM to this rank's stage
+        first (``parallel.pipelined_lm.keep_stage``): then tensor
+        parallelism, then FSDP2 over ``data``. ``fsdp=False`` leaves FSDP2
+        out whatever the rules say (``launch.dryrun`` traces a step on
+        the ``meta`` device, whose parameters FSDP2 refuses, and counts
+        its collectives instead)."""
         from ..runtime.trainer import shard_lm
         if model.cfg != self.arch:
             raise ValueError(f"an LM of {model.cfg.name} as built for "
                              "another cell: build it from cell.arch")
         if self.kind != "train":
             model.requires_grad_(False)
-        _, self.placed["groups"] = shard_lm(model, self.mesh, self.rules,
-                                            model_meta(self.arch))
+        if model.mesh is None:
+            self._stage(model)
+        rules = dict(self.rules)
+        if not fsdp:
+            rules.pop("fsdp", None)
+        self.placed["shardings"], groups = shard_lm(model, self.mesh, rules,
+                                                    model.meta())
+        if self.pipelined:
+            from ..parallel.pipelined_lm import pod_norm_groups
+            groups = pod_norm_groups(model, groups, self.mesh)
+        self.placed["groups"] = groups
         return model
+
+    def _stage(self, model: LM) -> None:
+        """Cut a whole, unplaced ``model`` to this rank's pipeline stage
+        where the cell is pipelined."""
+        if self.pipelined and len(model.layers) == self.arch.num_layers:
+            from ..parallel.pipelined_lm import keep_stage
+            keep_stage(model, self.mesh)
 
 
 def _axis_size(mesh, ax) -> int:
@@ -217,11 +246,12 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
     """The cell of ``arch`` (a config name or an ``ArchConfig``) and
     ``shape`` (a name of ``SHAPES_BY_NAME`` or a ``ShapeConfig``) on
     ``mesh``. ``serve_budget``: the serve profile's bytes of weights a
-    rank may hold without FSDP (None: ``weight_budget``)."""
-    if pipeline:
-        raise NotImplementedError(
-            "the GPipe pipeline over pod waits for ROADMAP.md, Queue 1 "
-            "item 3")
+    rank may hold without FSDP (None: ``weight_budget``). ``pipeline``:
+    the rules of ``make_rules(mesh, pipeline_pods=True)`` (``dp`` and
+    ``fsdp`` over ``data`` alone), and a train cell of a config that
+    ``supports_pipeline`` on a mesh with ``pod`` runs its layer stack as a
+    GPipe pipeline over ``pod`` (``pipelined_loss_fn``); any other cell
+    keeps the plain steps under those rules, its pod ranks replicas."""
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     shape = shape if isinstance(shape, ShapeConfig) else \
         SHAPES_BY_NAME[shape]
@@ -239,7 +269,7 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
             "REPRO_REMAT_POLICY", "") in ("dots", "full"):
         cfg = dataclasses.replace(
             cfg, remat_policy=os.environ["REPRO_REMAT_POLICY"])
-    rules = make_rules(mesh, profile=profile)
+    rules = make_rules(mesh, pipeline_pods=pipeline, profile=profile)
     if profile == "serve" and "fsdp" in rules:
         pbytes = param_count(model_meta(cfg)) * 2
         tp_size = mesh_shape(mesh).get("model", 1)
@@ -267,30 +297,51 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
     num_groups = _axis_size(mesh, rules.get("dp"))
     placed: Dict[str, Any] = {}
 
-    def cell(kind, fn, args, shardings, donate):
+    def cell(kind, fn, args, shardings, donate, pipelined=False):
         return Cell(cfg, shape, kind, fn, args, shardings, donate,
-                    mesh=mesh, rules=rules, placed=placed)
+                    mesh=mesh, rules=rules, placed=placed,
+                    pipelined=pipelined)
 
     if shape.kind == "train":
+        from ..parallel.pipelined_lm import (pipeline_param_shardings,
+                                             pipelined_loss_fn,
+                                             supports_pipeline,
+                                             sync_pod_grads)
         ocfg = AdamWConfig()
         om = opt_meta(meta)
         opt_abs = abstract_tree(om)
-        ospecs = logical_shardings(mesh, om, rules)
+        use_pipeline = (pipeline and "pod" in mesh_shape(mesh)
+                        and supports_pipeline(cfg))
+        if use_pipeline:
+            pspecs = pipeline_param_shardings(mesh, meta, rules)
+            ospecs = {"mu": pipeline_param_shardings(mesh, om["mu"], rules),
+                      "nu": pipeline_param_shardings(mesh, om["nu"], rules),
+                      "step": logical_shardings(mesh, om["step"], rules)}
+
+            def loss_impl(model, batch):
+                return pipelined_loss_fn(model, batch, mesh, rules)
+        else:
+            ospecs = logical_shardings(mesh, om, rules)
+
+            def loss_impl(model, batch):
+                return loss_fn(model, batch, num_groups)
 
         def train_step(model, opt_state, batch):
             params = dict(model.named_parameters())
             model.zero_grad(set_to_none=True)
-            loss, metrics = loss_fn(model, batch, num_groups)
+            loss, metrics = loss_impl(model, batch)
             loss.backward()
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in params.items()}
+            if use_pipeline:
+                sync_pod_grads(model, grads, mesh)
             _, opt_state, om_ = adamw_update(ocfg, grads, params, opt_state,
                                              placed.get("groups"))
             model.zero_grad(set_to_none=True)
             return model, opt_state, dict(metrics, loss=loss, **om_)
 
         return cell("train", train_step, (params_abs, opt_abs, batch_abs),
-                    (pspecs, ospecs, bspecs), (0, 1))
+                    (pspecs, ospecs, bspecs), (0, 1), use_pipeline)
 
     if shape.kind == "prefill":
         @torch.no_grad()

@@ -258,8 +258,12 @@ def _write_cache(buf: torch.Tensor, u: torch.Tensor, start: torch.Tensor,
         return _write_at(buf, u, start)
     local = start.long() - seq.rank * buf.shape[1]
     own = (local >= 0) & (local < buf.shape[1])
-    rows = torch.arange(buf.shape[0], device=buf.device)[own]
-    buf[rows, local[own]] = u[own, 0].to(buf.dtype)
+    # every row writes: its token where the block owns the position, else
+    # what it holds (no data-dependent shape: a meta-device trace runs it)
+    at = local.clamp(0, buf.shape[1] - 1)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    keep = own.view((-1,) + (1,) * (u.dim() - 2))
+    buf[rows, at] = torch.where(keep, u[:, 0].to(buf.dtype), buf[rows, at])
     return buf
 
 

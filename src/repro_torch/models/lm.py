@@ -381,11 +381,57 @@ class LM(nn.Module):
         if cfg.param_dtype != "float32":
             # the reference draws each normal in float32 and casts it
             self.to(getattr(torch, cfg.param_dtype))
+        # the global index of ``layers[0]``: a pipeline stage holds a run
+        # of the layers (``keep_layers``)
+        self.first_layer = 0
         # one device until ``place``
         self.mesh, self.rules = None, {}
         self.tp: Optional[blocks.TensorParallel] = None
         self.dp_groups: List[Any] = []
         self.dp_size, self.dp_rank = 1, 0
+
+    def keep_layers(self, first: int, count: int) -> "LM":
+        """Keep layers ``[first, first + count)`` alone, in place: a
+        pipeline stage's LM (``parallel.pipelined_lm``). Their parameters
+        are then named ``layers.<i - first>.*`` (``meta``), and
+        ``forward``, ``prefill`` and ``decode_step`` would run this run of
+        layers alone: the stage's step is the pipeline's."""
+        if self.mesh is not None or self.shared is not None:
+            raise ValueError("a pipeline stage cuts an unplaced LM without "
+                             "a shared block")
+        if self.first_layer or not 0 <= first < first + count <= len(
+                self.layers):
+            raise ValueError(f"layers [{first}, {first + count}) of an LM "
+                             f"holding {len(self.layers)} from "
+                             f"{self.first_layer}")
+        self.layers = nn.ModuleList(list(self.layers)[first:first + count])
+        self.first_layer = first
+        return self
+
+    def meta(self) -> Dict[str, Any]:
+        """``model_meta`` of the parameters this LM holds (a pipeline
+        stage's layers alone, by its names)."""
+        meta = model_meta(self.cfg)
+        meta["layers"] = meta["layers"][
+            self.first_layer:self.first_layer + len(self.layers)]
+        return meta
+
+    def local_name(self, name: str) -> Optional[str]:
+        """The name of the parameter ``name`` (a name of the whole LM) in
+        this LM, or None where it holds no such parameter (a layer of
+        another pipeline stage)."""
+        if not name.startswith("layers."):
+            return name
+        index, _, rest = name[len("layers."):].partition(".")
+        i = int(index) - self.first_layer
+        return f"layers.{i}.{rest}" if 0 <= i < len(self.layers) else None
+
+    def whole_name(self, name: str) -> str:
+        """The name in the whole LM of this LM's parameter ``name``."""
+        if not name.startswith("layers."):
+            return name
+        index, _, rest = name[len("layers."):].partition(".")
+        return f"layers.{int(index) + self.first_layer}.{rest}"
 
     def place(self, mesh, rules: Dict[str, Any],
               meta: Optional[Dict[str, Any]] = None) -> "LM":
@@ -396,7 +442,7 @@ class LM(nn.Module):
         name no axis everything stays whole."""
         if self.mesh is not None:
             raise ValueError("the LM is already laid out on a mesh")
-        meta = meta if meta is not None else model_meta(self.cfg)
+        meta = meta if meta is not None else self.meta()
         self.mesh, self.rules = mesh, dict(rules)
         from ..parallel.rules import mesh_shape
         sizes = mesh_shape(mesh)
@@ -425,11 +471,15 @@ class LM(nn.Module):
         the constructor's order, cut to this rank's block (``tp_layouts``)
         and kept on ``device``. An LM built on the ``meta`` device (which
         draws nothing) and placed thus gets the weights of ``LM(cfg,
-        generator=generator)`` without a rank ever holding them whole."""
+        generator=generator)`` without a rank ever holding them whole. A
+        pipeline stage draws every layer in turn and keeps its own."""
         layouts = self.tp_layouts()
         with torch.no_grad():
-            for name, m in _flat(model_meta(self.cfg)).items():
+            for full, m in _flat(model_meta(self.cfg)).items():
                 t = make_param(m, generator, device)
+                name = self.local_name(full)
+                if name is None:
+                    continue
                 if layouts[name] is not None:
                     t = self.tp.block(t, layouts[name]).clone()
                 path, _, leaf = name.rpartition(".")
@@ -446,7 +496,7 @@ class LM(nn.Module):
         any other weight along the dim the sanitized rules shard over
         ``model``, as one run (``w_in``: its v and gate columns, two)."""
         from ..parallel.rules import logical_shardings
-        meta = meta if meta is not None else model_meta(self.cfg)
+        meta = meta if meta is not None else self.meta()
         if self.tp is None:
             return {name: None for name in _flat(meta)}
         shapes = {name: m.shape for name, m in _flat(meta).items()}
@@ -466,6 +516,13 @@ class LM(nn.Module):
                 out.update({f"layers.{i}.mixer.{k}": v
                             for k, v in runs.items()})
         return out
+
+    def call(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)`` entered as a forward pass of this
+        LM: where ``runtime.trainer.shard_lm`` put it under FSDP2, its root
+        parameters are gathered around the call (the pipelined loss,
+        ``parallel.pipelined_lm``, runs its layers itself)."""
+        return fn(self, *args, **kwargs)
 
     @property
     def device(self) -> torch.device:

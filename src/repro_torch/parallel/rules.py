@@ -101,9 +101,13 @@ def _names(ax) -> Tuple[str, ...]:
 class NamedSharding:
     """A tensor laid out over ``mesh`` by ``spec``: dim i cut into
     ``size(spec[i])`` equal blocks, block c on the ranks whose coordinate
-    along those axes (row-major over a tuple) is c."""
+    along those axes (row-major over a tuple) is c. ``stage``: None (on
+    every coordinate of the axes the spec leaves out), or the coordinate
+    along ``pod`` of the ranks that alone hold it (a pipeline stage's
+    layer, ``parallel.pipelined_lm.pipeline_param_shardings``)."""
     mesh: Any
     spec: Spec
+    stage: Any = None
 
     def _coordinate(self, ax) -> int:
         sizes = mesh_shape(self.mesh)

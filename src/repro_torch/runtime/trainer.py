@@ -155,8 +155,8 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
     per-layer hooks cost a serving step host time), FSDP2 over the dp
     ranks, every layer and then the root (the shared block of
     zamba2 with the root: it runs at several places), the LM's and the
-    layers' ``prefill`` and the LM's ``decode_step`` gathering their
-    parameters as ``forward`` does. Returns ({name: MeshLayout}, {name:
+    layers' ``prefill`` and the LM's ``decode_step`` and ``call`` gathering
+    their parameters as ``forward`` does. Returns ({name: MeshLayout}, {name:
     the process groups its gradient's blocks span, or, for a block that
     holds whole runs, an ``optim.adamw.NormShare`` of them}), the second
     ``global_norm``'s ``shard_groups``."""
@@ -180,7 +180,7 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
             module.set_force_sum_reduction_for_comms(True)
         for layer in layers:
             register_fsdp_forward_method(layer, "prefill")
-        for method in ("prefill", "decode_step"):
+        for method in ("prefill", "decode_step", "call"):
             register_fsdp_forward_method(model, method)
     dp_groups = [g for g in model.dp_groups
                  if torch.distributed.get_world_size(g) > 1]

@@ -45,7 +45,11 @@ def test_import_loads_neither_jax_nor_the_reference():
                                     "repro_torch.runtime.trainer",
                                     "repro_torch.launch.train",
                                     "repro_torch.parallel.rules",
-                                    "repro_torch.launch.mesh"])
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.parallel.pipeline",
+                                    "repro_torch.parallel.pipelined_lm",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.dryrun"])
 def test_the_distributed_modules_load_neither_jax_nor_the_reference(module):
     """Each module of the distributed layer and of the model stack,
     imported alone with torch.distributed, pulls in no JAX and nothing of
@@ -68,6 +72,7 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
               ROOT / "examples" / "train_lm_torch.py",
               ROOT / "examples" / "fftconv_lm_torch.py",
               ROOT / "examples" / "serve_lm_torch.py",
+              ROOT / "examples" / "pipeline_lm_torch.py",
               ROOT / "scripts" / "dist_times.py",
               ROOT / "scripts" / "dist_train.py",
               ROOT / "scripts" / "dist_serve.py"]
@@ -77,7 +82,11 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             "trainer.py", "train.py", "train_lm_torch.py",
             "fftconv_lm_torch.py", "rules.py", "mesh.py",
             "serve_lm_torch.py", "dist_train.py", "specs.py",
-            "dist_serve.py"} <= {f.name for f in files}
+            "dist_serve.py", "pipelined_lm.py", "dryrun.py",
+            "pipeline_lm_torch.py"} <= {
+                f.name for f in files}
+    assert {"parallel/pipeline.py", "data/pipeline.py"} <= {
+        f"{f.parent.name}/{f.name}" for f in files}
     assert len(files) > 10
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
