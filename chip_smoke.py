@@ -173,7 +173,15 @@ run from the root of a checkout. Phases, each of which raises on failure:
    rank (losses, grad_norms, the first moment after the first step and
    the parameters after the last), with a control that must miss (gradients averaged over
    the data ranks instead of summed), and the sharded mixer's gradient
-   over (4,);
+   over (4,); (d), on the same ranks in float32, what a rank holds:
+   olmo-1b's width on two layers on (1, 4) and (2, 2) and phi3.5-moe on
+   one layer on (2, 2), loss_fn and its backward against one device's
+   (run on every rank, each holding its own blocks of its gradients:
+   loss 1e-5 of |loss|, every gradient 1e-4 of its max), every
+   parameter's FSDP2 placement the dim runtime.trainer.fsdp_dims gives
+   (phi's experts along moe_d), and, read by a dispatch mode, the widest
+   logits block a rank builds (V/tp: the vocab-parallel head and
+   cross-entropy) and the peak GiB a rank;
 19. serve on a (data, model) mesh: (a) phase 15's two models (the same
    weights) on a (1, 1) mesh at world size 1 on NCCL through ServeLoop's
    mesh (build_cell's decode cell, the serve profile off), 4 of phase
@@ -211,7 +219,9 @@ run from the root of a checkout. Phases, each of which raises on failure:
    timed beside phase 17's and traced, no kernel launched; (b), run on
    phase 11's four gloo ranks in float32: olmo-1b's width on four layers
    on (4, 1, 1), (2, 2, 1) and (2, 1, 2), each rank's stage's gradients
-   against one device's, with a control that must miss (the gradients of
+   against one device's, on (2, 1, 2) the widest tensor of the step on
+   any stage the vocab's block (V/2: the last stage's head and loss hold
+   the vocab in blocks), with a control that must miss (the gradients of
    the parameters whole over pod not summed over pod).
 
 Phase 2 also holds the four-step, transpose and complex-multiply kernels
@@ -423,6 +433,22 @@ SHARDED_GRAD_LAUNCHES = {"four_step_fft": 6, "batched_transpose": 28,
                          "complex_multiply": 9, "fftconv_fused": 0}
 MESH_LAYERS = (("fftconv_mlp", 1), ("attn_mlp", 1))
 MESH_B, MESH_S, MESH_STEPS = 4, 2048, 3
+# phase 18 (d): what a rank holds on a (data, model) mesh, over the
+# GLOO_RANKS gloo ranks in float32 (TF32 off): olmo-1b's width on
+# PLACE_LAYERS layers (PLACE_B x PLACE_S) on (1, 4) and (2, 2) and
+# phi3.5-moe on PLACE_PHI_LAYERS layer (PLACE_B x PLACE_PHI_S, 2 MoE
+# groups) on (2, 2), each loss_fn + backward against one device (on
+# every rank, which keeps its own blocks of those gradients:
+# tests/_lm_parity.py's limits, PLACE_LOSS_TOL of |loss|, PLACE_GRAD_TOL
+# of each gradient's max), every FSDP2 placement fsdp_dims's, and the
+# widest (..., X) tensor an op of the loss or its backward yields: V/tp.
+# phi3.5-moe takes one layer: its experts cut along moe_d (FSDP2's
+# Shard(1)) are copied out of each all-gather (a layer's 2.5 GB block
+# twice over a rank, and its gradient's reduce-scatter input), and with
+# two layers the four ranks' backward outgrew the one card's 80 GB
+PLACE_LAYERS, PLACE_B, PLACE_S, PLACE_PHI_S = 2, 4, 512, 256
+PLACE_PHI_LAYERS = 1
+PLACE_LOSS_TOL, PLACE_GRAD_TOL = 1e-5, 1e-4
 # phase 19: serving on a (data, model) mesh. (a) phase 15's two models
 # (the same seed: the same weights) on a (1, 1) mesh at world size 1 on
 # NCCL through ServeLoop's mesh (build_cell's decode cell: its rules, the
@@ -501,7 +527,8 @@ KINDS_LOSS_TOL, KINDS_GRAD_TOL, KINDS_NORM_TOL = 1e-4, 1e-3, 1e-3
 # to GLOO_PIPE_LAYERS layers on each of GLOO_PIPE_MESHES, GLOO_PIPE_B x
 # GLOO_PIPE_S tokens, num_microbatches 4 (build_cell's step, its gradients
 # after the pod sum), against one device on every rank: the loss within
-# GLOO_PIPE_LOSS_TOL, every gradient within GLOO_PIPE_GRAD_TOL of its max;
+# GLOO_PIPE_LOSS_TOL, every gradient within GLOO_PIPE_GRAD_TOL of its max,
+# and where model > 1 the widest (..., X) tensor of the step exactly V/tp;
 # a control that must miss: the whole-over-pod gradients (the tied
 # embedding, the final norm) not summed over pod, on (4, 1, 1)
 PIPE_P1_LOSS_TOL, PIPE_P1_NORM_TOL, PIPE_P1_GRAD_TOL = 1e-6, 1e-5, 1e-4
@@ -2047,8 +2074,11 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
         extra += gloo_psum(rank, meshes["(4,)"])
         t18 = time.perf_counter()
         torch.cuda.empty_cache()
-        # phase 18 (c) on the same ranks
+        # phase 18 (c) and (d) on the same ranks
         extra += gloo_mesh_train(rank, meshes["(4,)"], planner, gen)
+        t18d = time.perf_counter()
+        torch.cuda.empty_cache()
+        extra += gloo_placement(rank)
         t19 = time.perf_counter()
         torch.cuda.empty_cache()
         # phase 19 (b) on the same ranks
@@ -2064,7 +2094,8 @@ def gloo_rank_body(rank: int, store_path: str, out_path: str) -> None:
         if rank == 0:
             extra.append(f"gloo{GLOO_RANKS} phases 12-14 took "
                          f"{t18 - t0:.1f} s, phase 18 (c) took "
-                         f"{t19 - t18:.1f} s, phase 19 (b) took "
+                         f"{t18d - t18:.1f} s, phase 18 (d) took "
+                         f"{t19 - t18d:.1f} s, phase 19 (b) took "
                          f"{t20 - t19:.1f} s, phase 20 (b) took "
                          f"{t21 - t20:.1f} s, phase 21 (b) took "
                          f"{time.perf_counter() - t21:.1f} s")
@@ -3534,6 +3565,163 @@ def gloo_mesh_train(rank, mesh4, planner, gen) -> list:
     return lines
 
 
+def widest_block():
+    """A dispatch mode whose ``width`` is the largest last dim of the
+    (..., S, X) tensors (3 dims or more) its ops yield: the logits' (or
+    their block's) on the training path of an LM."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Widest(TorchDispatchMode):
+        width = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.dim() >= 3:
+                    self.width = max(self.width, t.shape[-1])
+            return out
+    return Widest()
+
+
+def place_case(rank, name, cfg, dm, rows, seq) -> str:
+    """loss_fn and its backward of ``cfg`` on a (data, model) mesh of
+    shape ``dm`` (its LM drawn a parameter at a time, placed, then under
+    FSDP2 through the Trainer) against one device's on the same global
+    batch: every rank runs the one device first and keeps its own blocks
+    of those gradients (``MeshLayout.shard``), so no gradient is gathered.
+    Returns rank 0's line."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import make_mesh
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import LM, loss_fn
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import padded_vocab
+    from repro_torch.optim.adamw import local
+    from repro_torch.parallel import make_rules
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.trainer import fsdp_dims
+    t0 = time.perf_counter()
+    free_host_cache()
+    shape = ShapeConfig("train", seq, rows, "train")
+    dp = dm[0]
+    single = LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    batch = {k: torch.from_numpy(v).cuda().long() for k, v in
+             SyntheticDataset(cfg, shape, SEED).batch_at(0).items()}
+    loss = loss_fn(single, batch, dp)[0]
+    loss.backward()
+    ref_loss = float(loss.detach())
+    ref = {n: p.grad for n, p in single.named_parameters()}
+    del single, batch, loss
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    mesh = make_mesh(dm, ("data", "model"),
+                     timeout=datetime.timedelta(seconds=300),
+                     device_type="cuda")
+    model = LM(cfg, device="meta")
+    model.place(mesh, make_rules(mesh))
+    model.draw(torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_place_") as tmp:
+        tr = Trainer(cfg, shape, mesh, TrainerConfig(ckpt_dir=tmp,
+                                                     seed=SEED),
+                     model=model)
+        model = tr.init_state()[0]
+    # this rank's block of each of one device's gradients, and its max
+    want_g = {}
+    for n in list(ref):
+        g = ref.pop(n)
+        want_g[n] = (tr.shardings["params"][n].shard(g).clone(),
+                     g.abs().max())
+        del g
+    torch.cuda.empty_cache()
+    want = fsdp_dims(mesh, tr.meta, tr.rules)
+    misplaced = [n for n, p in model.named_parameters()
+                 if p.placements[0].dim != want[n]]
+    check(not misplaced, f"gloo rank {rank} {name} on {dm}: FSDP2 "
+          f"placements other than fsdp_dims's: {misplaced[:4]}")
+    moved = sorted({n.rsplit(".", 1)[-1] + f" {want[n]}"
+                    for n in want if want[n]})
+    batch = tr.batch_at(0)
+    widest = widest_block()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    with widest:
+        loss = loss_fn(model, batch, tr.num_groups)[0]
+        free_host_cache()
+        loss.backward()
+    torch.cuda.synchronize()
+    t_cmp = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    block = padded_vocab(cfg) // dm[1]
+    check(widest.width == block, f"gloo rank {rank} {name} on {dm}: the "
+          f"widest tensor of the loss is {widest.width} wide, not the "
+          f"vocab's block {block}")
+    errs = {}
+    for n, p in model.named_parameters():
+        blk, scale = want_g.pop(n)
+        g = local(p.grad)
+        check(g.shape == blk.shape, f"gloo rank {rank} {name} on {dm}: "
+              f"{n}'s gradient block {tuple(g.shape)}, one device's "
+              f"{tuple(blk.shape)}")
+        errs[n] = ((g - blk).abs().max() / scale.clamp(min=1e-30)).item() \
+            if g.numel() else 0.0
+    loss = float(loss.detach())
+    every = [None] * GLOO_RANKS
+    dist.all_gather_object(every, (peak, worst(errs)))
+    peaks = [e[0] for e in every]
+    worst_name, worst_err = max((e[1] for e in every), key=lambda x: x[1])
+    del model, tr, batch, want_g
+    free_host_cache()
+    dist.barrier()
+    if rank:
+        return ""
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    check(loss_err <= PLACE_LOSS_TOL and worst_err <= PLACE_GRAD_TOL,
+          f"gloo {name} on {dm}: loss {loss} against one device's "
+          f"{ref_loss} ({loss_err:.3e}, tol {PLACE_LOSS_TOL}), worst "
+          f"gradient {worst_name} err/max {worst_err:.3e} (tol "
+          f"{PLACE_GRAD_TOL})")
+    return (f"gloo{GLOO_RANKS} place {name} on {dm} (data, model), float32, "
+            f"{rows} x {seq}: loss err/|loss| {loss_err:.3e} (tol "
+            f"{PLACE_LOSS_TOL}), every gradient against one device err/max "
+            f"{worst_err:.3e} (worst {worst_name}, tol {PLACE_GRAD_TOL}); "
+            f"every FSDP2 placement fsdp_dims's (non-zero dims: "
+            f"{', '.join(moved)}); widest tensor of the loss and its "
+            f"backward {widest.width} wide (the vocab's block, "
+            f"{padded_vocab(cfg)} / {dm[1]}); peak a rank in the loss and "
+            f"its backward " + ", ".join(f"{x:.2f}" for x in peaks)
+            + f" GiB; {time.perf_counter() - t0:.1f} s (one device "
+            f"{t_ref - t0:.1f}, placing {t_step - t_ref:.1f}, loss and "
+            f"backward {t_cmp - t_step:.1f}); host {host_gib():.1f} GiB")
+
+
+def gloo_placement(rank) -> list:
+    """Phase 18 (d) over the gloo ranks (``place_case``). Returns rank
+    0's lines."""
+    from repro_torch.configs import get_config
+    olmo = get_config("olmo-1b")
+    olmo = dataclasses.replace(olmo, num_layers=PLACE_LAYERS,
+                               segments=(("attn_mlp", PLACE_LAYERS),),
+                               compute_dtype="float32")
+    phi = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              num_layers=PLACE_PHI_LAYERS,
+                              compute_dtype="float32")
+    lines = []
+    for name, cfg, dm, seq in (
+            (f"olmo-1b width on {PLACE_LAYERS} layers", olmo, (1, 4),
+             PLACE_S),
+            (f"olmo-1b width on {PLACE_LAYERS} layers", olmo, (2, 2),
+             PLACE_S),
+            (f"phi3.5-moe on {PLACE_PHI_LAYERS} layer", phi, (2, 2),
+             PLACE_PHI_S)):
+        lines.append(place_case(rank, name, cfg, dm, PLACE_B, seq))
+        torch.cuda.empty_cache()
+    return [line for line in lines if line]
+
+
 # ---------------------------------------------------------------------------
 # serving on a (data, model) mesh (phase 19)
 # ---------------------------------------------------------------------------
@@ -3871,7 +4059,7 @@ def gloo_kinds_serve(rank, name, cfg, dm, batch) -> str:
 
     want = None
     if rank == 0:
-        single = LM(cfg, generator=torch.Generator(
+        single = LM(cfg, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(SEED))
         want = run(single, single.decode_step, lambda lg: lg, slice(None))
         del single
@@ -3966,7 +4154,7 @@ def gloo_kinds_train(rank, name, cfg) -> str:
             k for k, _ in cfg.resolved_segments()} else None
     line = None
     if rank == 0:
-        single = LM(cfg, generator=torch.Generator(
+        single = LM(cfg, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(SEED))
         batch = {k: torch.from_numpy(v).to("cuda").long()
                  if k in ("tokens", "labels") else
@@ -4254,6 +4442,7 @@ def gloo_pipeline(rank) -> list:
     from repro_torch.data import SyntheticDataset
     from repro_torch.launch.specs import build_cell
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import padded_vocab
     from repro_torch.optim import adamw_init
     from repro_torch.parallel import pipelined_lm
     free_host_cache()
@@ -4277,8 +4466,10 @@ def gloo_pipeline(rank) -> list:
                     0, mesh, cell.rules).items()}
         model = cell.build(torch.Generator(device="cuda").manual_seed(SEED))
         opt = adamw_init(dict(model.named_parameters()))
-        (metrics, grads), launches, _ = counted(
-            lambda: cell_step(cell, model, opt, rows))
+        widest = widest_block()
+        with widest:
+            (metrics, grads), launches, _ = counted(
+                lambda: cell_step(cell, model, opt, rows))
         check(launches == dict.fromkeys(launches, 0), f"gloo rank {rank} "
               f"pipeline {dm}: launches {launches}")
         sh = cell.placed["shardings"]
@@ -4290,7 +4481,7 @@ def gloo_pipeline(rank) -> list:
                                          / w.abs().max()).item()
         loss_err = abs(metrics["loss"].item() - want["loss"]) / want["loss"]
         every = [None] * dist.get_world_size()
-        dist.all_gather_object(every, (loss_err, worst(errs)))
+        dist.all_gather_object(every, (loss_err, worst(errs), widest.width))
         del model, opt, grads, cell
         free_host_cache()
         return every, time.perf_counter() - t0
@@ -4303,13 +4494,23 @@ def gloo_pipeline(rank) -> list:
               f"gloo pipeline {dm}: loss err {loss_err}, gradient {name} "
               f"err/max {err} (tol {GLOO_PIPE_LOSS_TOL}, "
               f"{GLOO_PIPE_GRAD_TOL})")
+        # the last stage's head and loss hold the vocab in blocks
+        width = max(e[2] for e in every)
+        vocab = ""
+        if dm[2] > 1:
+            block = padded_vocab(cfg) // dm[2]
+            check(width == block, f"gloo pipeline {dm}: the widest tensor "
+                  f"of the step is {width} wide, not the vocab's block "
+                  f"{block}")
+            vocab = (f"widest tensor of the step on any stage {width} (the "
+                     f"vocab's block, {padded_vocab(cfg)} / {dm[2]}); ")
         lines.append(
             f"gloo{GLOO_RANKS} pipeline olmo-1b width on {GLOO_PIPE_LAYERS} "
             f"layers on {dm} (pod, data, model), float32, {GLOO_PIPE_B} x "
             f"{GLOO_PIPE_S}: loss err/|loss| {loss_err:.3e} (tol "
             f"{GLOO_PIPE_LOSS_TOL}), every gradient against one device "
             f"err/max {err:.3e} (worst {name}, tol {GLOO_PIPE_GRAD_TOL}); "
-            f"launches 0 on every rank; {sec:.1f} s; rank 0 host "
+            f"{vocab}launches 0 on every rank; {sec:.1f} s; rank 0 host "
             f"{host_gib():.1f} GiB")
     sync = pipelined_lm.sync_pod_grads
     pipelined_lm.sync_pod_grads = lambda model, grads, mesh: None

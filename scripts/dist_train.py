@@ -52,7 +52,9 @@ transpose / complex multiply for the FFT-conv LM, none for the others);
 the step ms of steps 2-STEPS (each rank's median, the slowest rank's
 taken), tokens/s of the whole mesh, the peak GiB a card (the largest
 rank's), and the NCCL kernels' share of the device time of a traced step
-on rank 0 beside the device's busy share of its wall. Rank 0 prints one
+on rank 0 beside the device's busy share of its wall and the device time
+of FSDP2's copies in and out of its collectives' buffers (its kernels
+other than NCCL's). Rank 0 prints one
 line a measurement and the card label. ``--runs`` picks the runs whose
 names contain one of its comma-separated words (default: every run).
 Needs CUDA cards.
@@ -123,8 +125,8 @@ def check(cond: bool, what: str) -> None:
 
 
 def traced(fn):
-    """(wall ms, device busy ms, NCCL kernels' device ms) of one traced
-    call of ``fn`` (after one untraced call)."""
+    """(wall ms, device busy ms, NCCL kernels' device ms, FSDP2's copies'
+    device ms) of one traced call of ``fn`` (after one untraced call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -142,7 +144,23 @@ def traced(fn):
     nccl = sum(e.self_device_time_total for e in rows
                if "nccl" in e.key.lower()
                and not e.key.startswith("nccl:")) / 1e3
-    return wall, busy, nccl
+    return wall, busy, nccl, fsdp_copies_ms(prof.events())
+
+
+def fsdp_copies_ms(events) -> float:
+    """Device ms of the kernels other than NCCL's that ops inside FSDP2's
+    own ranges ("FSDP::...") launch: the copies into and out of its
+    all-gather and reduce-scatter buffers (a block cut along a dim other
+    than the first is copied once more each way) and the gradients'
+    division."""
+    def inside(e):
+        while e is not None:
+            if e.name.startswith("FSDP::"):
+                return True
+            e = e.cpu_parent
+        return False
+    return sum(k.duration for e in events if inside(e)
+               for k in e.kernels if "nccl" not in k.name.lower()) / 1e3
 
 
 def run(cfg, planner, shape, mesh, steps: int, accum: int = 1):
@@ -257,7 +275,7 @@ def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, *, say,
     step_ms = mesh_max(mesh, statistics.median(tr_ms[1:]))
     peak = mesh_max(mesh, torch.cuda.max_memory_allocated() / 2 ** 30)
     batch = tr.batch_at(steps)
-    wall, busy, nccl = traced(
+    wall, busy, nccl, copies = traced(
         lambda: Trainer.train_step(tr, model, opt_state, batch))
     del model, opt_state, tr, batch
     gc.collect()
@@ -282,8 +300,9 @@ def train(name, cfg, planner, mesh, rows: int, seq: int, per_step, *, say,
         f"tokens/s; peak {peak:.2f} GiB a card (largest); launches a step "
         f"{per_step} on every rank (exact); traced step on rank 0: wall "
         f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy_share:.1%}), "
-        f"NCCL kernels {nccl:.1f} ms ({nccl_share:.1%} of busy); "
-        f"{time.perf_counter() - t0:.1f} s [{label}]")
+        f"NCCL kernels {nccl:.1f} ms ({nccl_share:.1%} of busy), FSDP2's "
+        f"copies {copies:.1f} ms; {time.perf_counter() - t0:.1f} s "
+        f"[{label}]")
 
 
 class CellRun:
@@ -385,7 +404,7 @@ def train_pipeline(name, cfg, mesh, rows: int, seq: int, *, say, label,
     step_ms = mesh_max(mesh, statistics.median(run.ms[1:]))
     peak = mesh_max(mesh, torch.cuda.max_memory_allocated() / 2 ** 30)
     batch = run.batch_at(steps)
-    wall, busy, nccl = traced(lambda: run.step(batch))
+    wall, busy, nccl, copies = traced(lambda: run.step(batch))
     first = run.hist[0]
     ms = run.ms
     del run, batch
@@ -414,7 +433,8 @@ def train_pipeline(name, cfg, mesh, rows: int, seq: int, *, say, label,
         f"tokens/s; peak {peak:.2f} GiB a card (largest); launches 0 a step "
         f"on every rank (exact); traced step on rank 0: wall {wall:.1f} ms,"
         f" device busy {busy:.1f} ms ({busy / wall:.1%}), NCCL kernels "
-        f"{nccl:.1f} ms ({nccl / busy:.1%} of busy); bubble "
+        f"{nccl:.1f} ms ({nccl / busy:.1%} of busy), FSDP2's copies "
+        f"{copies:.1f} ms; bubble "
         f"{pods - 1}/{ticks} of its compute {compute:.1f} ms: {bubble:.1f} "
         f"ms ({bubble / wall:.1%} of the wall, (S-1)/M = "
         f"{(pods - 1) / m:.3f} of the useful compute); "

@@ -58,10 +58,21 @@ Which of the reference's roofline terms carry over:
   the card's float32 matmul rate;
 * ``compile_seconds`` becomes ``trace_seconds``;
 * ``memory``: ``argument_bytes`` are rank 0's placed parameters (cut over
-  ``model``, over ``data`` by FSDP2's rows, a pipeline stage's layers
-  alone), their gradients and AdamW moments on a train cell, and its
-  block of the decode cache; ``output_bytes``, ``temp_bytes`` and
-  ``alias_bytes`` have no counterpart and are null.
+  ``model``, over ``data`` by FSDP2's blocks along each parameter's
+  ``runtime.trainer.fsdp_dims``, a pipeline stage's layers alone), their
+  gradients and AdamW moments on a train cell, and its block of the
+  decode cache. ``temp_bytes`` (XLA's ``temp_size_in_bytes``) is the peak
+  of the bytes of activations and temporaries during the traced step
+  (``TempBytes``: every storage an op creates, from that op until it is
+  freed, but a parameter's gradient once accumulated). Against XLA's
+  figure it has no fusion, so every eager temporary counts, and no buffer
+  reuse beyond PyTorch's own freeing; the step's outputs (a prefill's
+  cache, the logits, the metrics) count in it while they live, and
+  FSDP2's gathered parameters do not (the trace runs without FSDP2: its
+  all-gathers are counted, not run). ``output_bytes`` and ``alias_bytes``
+  stay null: an eager step has no compiled program whose outputs and
+  donated buffers XLA sizes apart (the decode cache and the AdamW state
+  are updated in place, the reference's aliasing without a count).
 
 Usage (any machine, no card):
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --mesh single
@@ -78,6 +89,7 @@ import math
 import os
 import time
 import traceback
+import weakref
 from typing import List, Tuple
 
 import torch
@@ -88,6 +100,7 @@ from torch.utils.flop_counter import flop_registry
 from ..configs import ARCH_IDS, get_config
 from ..core.plan import H100
 from ..models.config import SHAPES, SHAPES_BY_NAME
+from ..runtime.trainer import fsdp_dims
 from .mesh import make_production_mesh
 from .specs import build_cell
 
@@ -191,6 +204,43 @@ class StepCounter(TorchDispatchMode):
         return out
 
 
+class TempBytes(TorchDispatchMode):
+    """The peak bytes of activations and temporaries of a traced step
+    (``peak``): every storage an op creates (an output whose storage none
+    of its inputs holds) counts from that op until it is freed, but for
+    the storages ``keep`` takes out (a parameter's gradient, once
+    accumulated: it stands beside the parameters, as XLA's arguments
+    do)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = {}                  # storage -> (bytes, weak reference)
+        self.now = self.peak = 0
+
+    def _free(self, key, _ref) -> None:
+        self.now -= self.live.pop(key, (0, None))[0]
+
+    def keep(self, t: torch.Tensor) -> None:
+        """Count ``t``'s storage no longer."""
+        self._free(t.untyped_storage()._cdata, None)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        given = {t.untyped_storage()._cdata
+                 for t in _tensors(list(args) + list(kwargs.values()))}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in given or key in self.live:
+                continue
+            self.live[key] = (st.nbytes(), weakref.ref(
+                st, lambda ref, key=key: self._free(key, ref)))
+            self.now += st.nbytes()
+        self.peak = max(self.peak, self.now)
+        return out
+
+
 def bucket_collectives(events):
     """(operand bytes, counts, wire bytes) by bucket: the reference's
     ``parse_collectives(..., with_wire=True)`` of (bucket, result bytes,
@@ -229,12 +279,14 @@ def bucket_collectives(events):
     return out, counts, wire
 
 
-def fsdp_block_bytes(p: torch.Tensor, dp: int) -> int:
-    """Bytes of FSDP2's block of ``p`` on one of ``dp`` ranks: its first
-    dim cut into ceil(n / dp) rows (the last rank's padded)."""
-    rows = -(-p.shape[0] // dp) if p.dim() else 1
-    return rows * (p.numel() // max(p.shape[0], 1) if p.dim() else 1) \
-        * p.element_size()
+def fsdp_block_bytes(p: torch.Tensor, dp: int, dim: int) -> int:
+    """Bytes of FSDP2's block of ``p`` on one of ``dp`` ranks: its dim
+    ``dim`` (``runtime.trainer.fsdp_dims``) cut into ceil(n / dp) (the
+    last rank's padded)."""
+    if not p.dim():
+        return p.element_size()
+    n = p.shape[dim]
+    return -(-n // dp) * (p.numel() // max(n, 1)) * p.element_size()
 
 
 def fsdp_units(model) -> List[Tuple[str, List[torch.Tensor]]]:
@@ -253,8 +305,8 @@ def fsdp_units(model) -> List[Tuple[str, List[torch.Tensor]]]:
     return units
 
 
-def fsdp_collectives(model, dp: int, uses: int, train: bool,
-                     with_grad=None) -> List[Tuple[str, float, int]]:
+def fsdp_collectives(model, dp: int, uses: int, train: bool, with_grad,
+                     dims) -> List[Tuple[str, float, int]]:
     """The collectives FSDP2 runs in one step of ``model`` sharded over
     ``dp`` data ranks, as (bucket, result bytes, group size) events: each
     layer unit's flat all-gather at each of its ``uses`` in the forward
@@ -262,17 +314,18 @@ def fsdp_collectives(model, dp: int, uses: int, train: bool,
     were resharded after the forward); the root's once; in a train step
     one reduce-scatter of each unit's gradients, of the parameters in
     ``with_grad`` (ids; None: all) alone (a pipeline stage's root holds
-    no gradient of the head before the last stage)."""
+    no gradient of the head before the last stage). ``dims``: each
+    parameter's FSDP2 dim by id (``placed_lm``'s)."""
     if dp <= 1:
         return []
     events = []
     for name, params in fsdp_units(model):
-        block = sum(fsdp_block_bytes(p, dp) for p in params)
+        block = sum(fsdp_block_bytes(p, dp, dims[id(p)]) for p in params)
         if not block:
             continue
         n = 1 if name == "root" else uses * (2 if train else 1)
         events += [("all-gather", float(block * dp), dp)] * n
-        grads = sum(fsdp_block_bytes(p, dp) for p in params
+        grads = sum(fsdp_block_bytes(p, dp, dims[id(p)]) for p in params
                     if with_grad is None or id(p) in with_grad)
         if train and grads:
             events.append(("reduce-scatter", float(grads), dp))
@@ -342,18 +395,21 @@ def model_flops(cfg, shape) -> float:
     return mult * total * tokens
 
 
-def _argument_bytes(cell, model, cache, dp: int) -> int:
-    """Rank 0's placed parameters (FSDP2's blocks where the rules keep
-    fsdp), with their gradients and two float32 moments on a train cell,
-    and its block of the decode cache."""
+def _argument_bytes(cell, model, cache, dp: int, dims) -> int:
+    """Rank 0's placed parameters (FSDP2's blocks, along each parameter's
+    ``dims`` entry by id, where the rules keep fsdp), with their gradients
+    and two float32 moments on a train cell, and its block of the decode
+    cache."""
     fsdp = "fsdp" in cell.rules and dp > 1
+
+    def numel(p):
+        if not fsdp:
+            return p.numel()
+        return fsdp_block_bytes(p, dp, dims[id(p)]) // p.element_size()
     params = list(model.parameters())
-    pbytes = sum(fsdp_block_bytes(p, dp) if fsdp else
-                 p.numel() * p.element_size() for p in params)
+    pbytes = sum(numel(p) * p.element_size() for p in params)
     if cell.kind == "train":
-        moments = sum((fsdp_block_bytes(p, dp) // p.element_size() if fsdp
-                       else p.numel()) * 4 for p in params)
-        return 2 * pbytes + 2 * moments
+        return 2 * pbytes + 2 * sum(numel(p) * 4 for p in params)
     return pbytes + _nbytes(cache)
 
 
@@ -366,8 +422,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return _run_cell(arch, shape_name, multi_pod, pipeline, unroll_mode)
 
 
-def _run_cell(arch, shape_name, multi_pod, pipeline, unroll_mode):
+def placed_lm(mesh, cell):
+    """(rank 0's LM of ``cell`` on the ``meta`` device, placed on ``mesh``
+    as the cell places it but for FSDP2, {id of each parameter: its FSDP2
+    dim})."""
     from ..models.lm import LM
+    model = LM(cell.arch, device="meta")
+    cell.place(model, fsdp=False)
+    names = fsdp_dims(mesh, model.meta(), cell.rules)
+    return model, {id(p): names[n] for n, p in model.named_parameters()}
+
+
+def _run_cell(arch, shape_name, multi_pod, pipeline, unroll_mode):
     from ..optim import adamw_init
     from ..parallel.pipelined_lm import NUM_MICROBATCHES, microbatches
     from ..parallel.rules import mesh_shape
@@ -386,8 +452,7 @@ def _run_cell(arch, shape_name, multi_pod, pipeline, unroll_mode):
         return rec
 
     t0 = time.perf_counter()
-    model = LM(cell.arch, device="meta")
-    cell.place(model, fsdp=False)
+    model, dims = placed_lm(mesh, cell)
     batch_abs, batch_sh = cell.args[-1], cell.in_shardings[-1]
     batch = {k: batch_sh[k].shard(v) for k, v in batch_abs.items()}
     for k in ("tokens", "labels"):
@@ -395,23 +460,27 @@ def _run_cell(arch, shape_name, multi_pod, pipeline, unroll_mode):
             batch[k] = batch[k].long()
     dp = model.dp_size
     cache = None
-    counter = StepCounter()
+    counter, temps = StepCounter(), TempBytes()
     with_grad = set()
+
+    def accumulated(p):
+        with_grad.add(id(p))
+        temps.keep(p.grad)
     if cell.kind == "train":
         opt = adamw_init(dict(model.named_parameters()))
-        hooks = [p.register_post_accumulate_grad_hook(
-            lambda p: with_grad.add(id(p))) for p in model.parameters()]
-        with counter:
+        hooks = [p.register_post_accumulate_grad_hook(accumulated)
+                 for p in model.parameters()]
+        with counter, temps:
             cell.fn(model, opt, batch)
         for hook in hooks:
             hook.remove()
     elif cell.kind == "prefill":
-        with counter:
+        with counter, temps:
             cell.fn(model, batch)
     else:
         cache = model.init_cache(cell.shape.global_batch,
                                  cell.shape.seq_len)
-        with counter:
+        with counter, temps:
             cell.fn(model, cache, batch)
     uses = 1
     if cell.pipelined:
@@ -419,12 +488,13 @@ def _run_cell(arch, shape_name, multi_pod, pipeline, unroll_mode):
         rows = next(iter(batch.values())).shape[0]
         uses = microbatches(rows, NUM_MICROBATCHES) + stages - 1
     events = counter.events + (
-        fsdp_collectives(model, dp, uses, cell.kind == "train", with_grad)
+        fsdp_collectives(model, dp, uses, cell.kind == "train", with_grad,
+                         dims)
         if "fsdp" in cell.rules else [])
     rec["trace_seconds"] = round(time.perf_counter() - t0, 2)
     rec["memory"] = {
-        "argument_bytes": _argument_bytes(cell, model, cache, dp),
-        "output_bytes": None, "temp_bytes": None, "alias_bytes": None}
+        "argument_bytes": _argument_bytes(cell, model, cache, dp, dims),
+        "output_bytes": None, "temp_bytes": temps.peak, "alias_bytes": None}
 
     flops_dev = float(counter.flops)
     bytes_dev = float(counter.bytes)
@@ -500,7 +570,10 @@ def main(argv=None) -> None:
                     print(f"[ok]   {tag}: trace={rec['trace_seconds']}s "
                           f"flops/dev={rec['flops_per_device']:.3e} "
                           f"coll/dev={sum(rec['collective_bytes_per_device'].values()):.3e}B "
-                          f"bottleneck={rec['bottleneck']}", flush=True)
+                          f"bottleneck={rec['bottleneck']} "
+                          f"args={rec['memory']['argument_bytes']}B "
+                          f"temps={rec['memory']['temp_bytes']}B",
+                          flush=True)
                 elif rec["status"] == "skip":
                     print(f"[skip] {tag}: {rec['reason']}", flush=True)
                 else:

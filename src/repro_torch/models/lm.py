@@ -32,7 +32,8 @@ segment once whatever its count, the port runs every occurrence; every
 shipped config has a count of 1.
 
 Training: ``loss_fn`` is the reference's memory-lean cross-entropy plus
-0.01 times the MoE aux loss. With ``cfg.remat`` and autograd on,
+0.01 times the MoE aux loss (``token_nll_sum``, which the pipelined loss
+shares). With ``cfg.remat`` and autograd on,
 ``forward`` checkpoints each layer (``torch.utils.checkpoint``,
 non-reentrant): the reference's ``"full"`` policy keeps nothing but the
 layer's input, ``"dots"`` also the weight products (``_remat``).
@@ -47,11 +48,17 @@ call) each rank holds its rows of the batch (the ``dp`` axes) and, over
 heads (zamba2's shared block at each of its places too), the MLP's d_ff,
 the MoE's experts and the FFT-conv mixer's channels run tensor-parallel
 (``blocks``), and so do the recurrent mixers by heads (``ssm``, where
-``model`` divides them; Mamba2's B and C whole on every rank); the
-embedding and head, whose vocab the rules shard too, are gathered over
-``model`` on use. A frontend's ``{"embeds"}`` batch enters whole on every
-``model`` rank. The loss is the global one on every rank (``loss_fn``);
-the MoE's groups are split among the data ranks.
+``model`` divides them; Mamba2's B and C whole on every rank). The
+embedding and head, whose vocab the rules shard too, stay each rank's
+block of the vocab, as the reference's do: the lookup takes the tokens
+of this rank's rows and sums over ``model`` (``_embed``), the head gives
+this rank's block of the logits (``_head``), and ``loss_fn`` reduces the
+blocks over ``model`` (``VocabParallelNLL``), so no rank builds a
+(..., V) tensor on the training path. ``forward`` gathers the logit
+blocks at its end, ``prefill`` and ``decode_step`` the last position's:
+their outputs are whole. A frontend's ``{"embeds"}`` batch enters whole
+on every ``model`` rank. The loss is the global one on every rank
+(``loss_fn``); the MoE's groups are split among the data ranks.
 
 Serving on a mesh: ``init_cache`` allocates each rank's block of the
 decode cache (``launch.specs.cache_pspecs`` describes it): the K/V heads
@@ -72,6 +79,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -160,11 +168,18 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _mask_pad_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+def _mask_pad_vocab(cfg: ArchConfig, logits: torch.Tensor,
+                    first: int = 0) -> torch.Tensor:
+    """``logits`` with the pad columns at -1e30: the whole vocab, or the
+    block of it whose first column is the vocab's ``first``."""
     vp = padded_vocab(cfg)
     if vp == cfg.vocab_size:
         return logits
-    pad = torch.arange(cfg.vocab_size, vp, device=logits.device)
+    lo = max(cfg.vocab_size, first)
+    hi = min(vp, first + logits.shape[-1])
+    if lo >= hi:
+        return logits
+    pad = torch.arange(lo - first, hi - first, device=logits.device)
     return logits.index_fill(-1, pad, -1e30)
 
 
@@ -549,12 +564,52 @@ class LM(nn.Module):
                 p.data = p.data.to(self.dtype)
         return self
 
-    def _whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
-        """The embedding or head ``w``, gathered over ``model`` where this
-        rank holds a block of its vocab (its gradient: this rank's block)."""
-        if self.tp is None or w.shape[dim] == padded_vocab(self.cfg):
-            return w
-        return blocks.GatherFromRanks.apply(w, self.tp.group, dim)
+    def vocab_cut(self) -> bool:
+        """Whether this rank holds a block of the vocab over ``model``:
+        the embedding's rows and the head's columns ``[r·V/tp,
+        (r+1)·V/tp)`` of its rank r."""
+        return (self.tp is not None
+                and self.embed.shape[0] < padded_vocab(self.cfg))
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``tokens`` in the compute dtype: where the vocab
+        is cut, each rank looks up the tokens of its rows, zeroes the rest
+        and the sum over ``model`` (whose backward is the identity: each
+        rank's rows get their gradient) gives every rank the whole lookup.
+        Each element of that sum has one non-zero term, so it runs in the
+        compute dtype: the same values as a float32 sum, half the bytes
+        in bfloat16."""
+        w = self.embed
+        if not self.vocab_cut():
+            return w[tokens].to(self.dtype)
+        n = w.shape[0]
+        rows = tokens - self.tp.rank * n
+        inside = (rows >= 0) & (rows < n)
+        x = torch.where(inside[..., None], w[rows.clamp(0, n - 1)], 0.0)
+        return blocks.AllReduce.apply(x.to(self.dtype), (self.tp.group,))
+
+    def _head(self, x: torch.Tensor, float32: bool = False) -> torch.Tensor:
+        """The logits of ``x`` (cast to float32 where ``float32``), the pad
+        columns masked: (..., V), or where the vocab is cut this rank's
+        (..., V/tp) block, ``x`` entering as the column-parallel side of
+        tensor parallelism (its gradient summed over ``model``)."""
+        cut = self.vocab_cut()
+        if cut:
+            x = self.tp.copy(x)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        logits = x @ head.to(self.dtype)
+        if float32:
+            logits = logits.float()
+        first = self.tp.rank * logits.shape[-1] if cut else 0
+        return _mask_pad_vocab(self.cfg, logits, first)
+
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """``_head``'s logits whole: the blocks gathered over ``model``
+        where the vocab is cut (the gradient: this rank's block)."""
+        if not self.vocab_cut():
+            return logits
+        return blocks.GatherFromRanks.apply(logits, self.tp.group,
+                                            logits.dim() - 1)
 
     def _inputs(self, batch: Dict[str, torch.Tensor],
                 positions: Optional[torch.Tensor] = None):
@@ -565,7 +620,7 @@ class LM(nn.Module):
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            x = self._whole(self.embed, 0)[batch["tokens"]].to(self.dtype)
+            x = self._embed(batch["tokens"])
         if positions is None:
             positions = batch.get("positions")
         if positions is None:
@@ -576,11 +631,6 @@ class LM(nn.Module):
                                 else positions[0],
                                 self.cfg.d_model).to(x.dtype)
         return x, positions
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = (self._whole(self.embed, 0).T if self.cfg.tie_embeddings
-                else self._whole(self.lm_head, 1))
-        return x @ head.to(self.dtype)
 
     def _local_groups(self, num_groups: int, rows: bool = True) -> int:
         """The MoE groups among this rank's tokens: on a mesh each data
@@ -602,6 +652,14 @@ class LM(nn.Module):
         ``num_groups``: the MoE's token groups (the reference's; on a mesh,
         over all data ranks: this rank's batch is its ``num_groups / dp``
         groups, and its aux loss their mean)."""
+        logits, aux = self.vocab_logits(batch, num_groups)
+        return self._whole_vocab(logits), aux
+
+    def vocab_logits(self, batch: Dict[str, torch.Tensor],
+                     num_groups: int = 1):
+        """``forward``, the logits left as ``_head`` gives them: this
+        rank's block of the vocab where it is cut (``loss_fn`` reduces
+        them so)."""
         local = self._local_groups(num_groups)
         x, positions = self._inputs(batch)
         x = shard_act(x, "dp", None, None)
@@ -612,7 +670,7 @@ class LM(nn.Module):
             if layer_aux is not None:
                 aux = aux + layer_aux
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
-        return _mask_pad_vocab(self.cfg, self._logits(x)), aux
+        return self._head(x), aux
 
     def seq_split(self, batch: int) -> bool:
         """The layout of the decode caches of a global batch of ``batch``
@@ -693,7 +751,7 @@ class LM(nn.Module):
             x_last = x[torch.arange(bsz, device=x.device),
                        last_index.long()][:, None]
             cache_len = last_index.to(torch.int32) + 1
-        logits = _mask_pad_vocab(self.cfg, self._logits(x_last).float())
+        logits = self._whole_vocab(self._head(x_last, float32=True))
         return logits, {"len": cache_len, "layers": caches}
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
@@ -738,7 +796,7 @@ class LM(nn.Module):
         for layer, c in zip(self.layers, cache["layers"]):
             x, _ = layer(x, positions, c, lens, local, seq)
         x = blocks.apply_norm(self.final_norm, self.cfg, x)
-        logits = _mask_pad_vocab(self.cfg, self._logits(x).float())
+        logits = self._whole_vocab(self._head(x, float32=True))
         return logits, {"len": lens + 1, "layers": cache["layers"]}
 
 
@@ -756,32 +814,88 @@ def forward(model: LM, batch: Dict[str, torch.Tensor], num_groups: int = 1):
     return model(batch, num_groups)
 
 
+class VocabParallelNLL(torch.autograd.Function):
+    """The next-token negative log-likelihood (..., ) of logits whose
+    vocab the ranks of ``group`` hold in blocks, ``logits`` (..., V/tp)
+    this rank's block from the vocab's column ``first``, ``labels`` (...)
+    global ids (< 0: none, read as 0). The reference's memory-lean
+    cross-entropy over the tp-sharded vocab axis, step by step: the
+    block's max, then MAX over the ranks; the float32 sum of ``exp``,
+    then SUM; the label's logit from the rank that holds it (0
+    elsewhere), then SUM. The backward is (softmax - onehot) of this
+    rank's block times the incoming gradient; every tensor is a block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, first, group):
+        n = logits.shape[-1]
+        m = logits.amax(-1).float()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        total = torch.exp(logits.float() - m[..., None]).sum(-1)
+        dist.all_reduce(total, group=group)
+        logz = m + torch.log(total)
+        rows = labels.clamp(min=0) - first
+        inside = (rows >= 0) & (rows < n)
+        rows = rows.clamp(0, n - 1)
+        label_logit = torch.where(inside, torch.take_along_dim(
+            logits, rows[..., None], dim=-1)[..., 0].float(), 0.0)
+        dist.all_reduce(label_logit, group=group)
+        ctx.save_for_backward(logits, logz, rows, inside)
+        return logz - label_logit
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, rows, inside = ctx.saved_tensors
+        grad = torch.exp(logits.float() - logz[..., None])
+        grad.scatter_add_(-1, rows[..., None], -inside.float()[..., None])
+        return (grad * g[..., None]).to(logits.dtype), None, None, None
+
+
+def token_nll_sum(model: LM, logits: torch.Tensor, labels: torch.Tensor):
+    """(the sum of the next-token negative log-likelihood of ``logits``,
+    ``_head``'s, over the labels >= 0 of ``labels``, their count), each
+    summed over the data ranks (``blocks.AllReduce``, whose gradient is the
+    identity): ``loss_fn``'s and the pipelined loss's cross-entropy. The
+    reference's memory-lean cross-entropy, step by step: no (B, S, V)
+    one-hot, the float32 cast inside the reductions; where the vocab is
+    cut over ``model``, over the blocks (``VocabParallelNLL``)."""
+    labels = labels.long()
+    if model.vocab_cut():
+        nll = VocabParallelNLL.apply(logits, labels,
+                                     model.tp.rank * logits.shape[-1],
+                                     model.tp.group)
+    else:
+        m = logits.amax(-1).float()
+        shifted = logits.float() - m[..., None]
+        logz = m + torch.log(torch.exp(shifted).sum(-1))
+        label_logit = torch.take_along_dim(
+            logits, labels.clamp(min=0)[..., None], dim=-1)[..., 0].float()
+        nll = logz - label_logit
+    mask = (labels >= 0).float()
+    total, count = (nll * mask).sum(), mask.sum()
+    if model.dp_size > 1:
+        total = blocks.AllReduce.apply(total, model.dp_groups)
+        count = blocks.AllReduce.apply(count, model.dp_groups)
+    return total, count
+
+
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], num_groups: int = 1):
     """(loss, {"nll", "aux"}): the mean next-token negative log-likelihood
     over the labels >= 0 of ``batch["labels"]`` (B, S), plus 0.01 times the
-    MoE aux loss (``num_groups``: the MoE's groups, ``LM.forward``). The
-    reference's memory-lean cross-entropy, step by step: no (B, S, V)
-    one-hot, the float32 cast inside the reductions.
+    MoE aux loss (``num_groups``: the MoE's groups, ``LM.forward``), by
+    ``token_nll_sum``.
 
     On a mesh ``batch`` is this rank's rows and the loss is the global one,
     the same on every rank: the masked sum, the mask count and the aux
     loss are summed over the data ranks (``blocks.AllReduce``, whose
     gradient is the identity), so that each rank's backward yields its
-    share of the global gradient and the shares sum to it."""
-    logits, aux = model(batch, num_groups)
-    labels = batch["labels"].long()
-    m = logits.amax(-1).float()
-    shifted = logits.float() - m[..., None]
-    logz = m + torch.log(torch.exp(shifted).sum(-1))
-    label_logit = torch.take_along_dim(
-        logits, labels.clamp(min=0)[..., None], dim=-1)[..., 0].float()
-    mask = (labels >= 0).float()
-    total, count = ((logz - label_logit) * mask).sum(), mask.sum()
+    share of the global gradient and the shares sum to it. Where the vocab
+    is cut over ``model`` the logits stay this rank's block
+    (``LM.vocab_logits``, entered through ``LM.call``) and are never
+    gathered."""
+    logits, aux = model.call(LM.vocab_logits, batch, num_groups)
+    total, count = token_nll_sum(model, logits, batch["labels"])
     if model.dp_size > 1:
-        groups = model.dp_groups
-        total = blocks.AllReduce.apply(total, groups)
-        count = blocks.AllReduce.apply(count, groups)
-        aux = blocks.AllReduce.apply(aux, groups) / model.dp_size
+        aux = blocks.AllReduce.apply(aux, model.dp_groups) / model.dp_size
     nll = total / count.clamp(min=1.0)
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}

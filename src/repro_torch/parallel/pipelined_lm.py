@@ -32,7 +32,7 @@ import torch.distributed as dist
 
 from ..models import blocks
 from ..models.config import ArchConfig
-from ..models.lm import LM, _mask_pad_vocab, _remat
+from ..models.lm import LM, _remat, token_nll_sum
 from ..optim.adamw import NormShare, local
 from .pipeline import pipeline_stages
 from .rules import NamedSharding, logical_shardings, mesh_shape
@@ -162,7 +162,7 @@ def pipelined_loss_fn(model: LM, batch: Dict[str, torch.Tensor], mesh,
 def _loss(model: LM, batch: Dict[str, torch.Tensor], mesh,
           num_microbatches: int):
     cfg = model.cfg
-    tokens, labels = batch["tokens"], batch["labels"].long()
+    tokens, labels = batch["tokens"], batch["labels"]
     bsz, s = tokens.shape
     m = microbatches(bsz, num_microbatches)
     mb = bsz // m
@@ -181,17 +181,7 @@ def _loss(model: LM, batch: Dict[str, torch.Tensor], mesh,
         # head + loss on the LAST stage only
         y = blocks.apply_norm(model.final_norm, cfg,
                               outs.reshape(bsz, s, cfg.d_model))
-        logits = _mask_pad_vocab(cfg, model._logits(y))
-        mx = logits.amax(-1).float()
-        logz = mx + torch.log(torch.exp(logits.float() - mx[..., None])
-                              .sum(-1))
-        ll = torch.take_along_dim(logits, labels.clamp(min=0)[..., None],
-                                  dim=-1)[..., 0].float()
-        mask = (labels >= 0).float()
-        total, count = ((logz - ll) * mask).sum(), mask.sum()
-        if model.dp_size > 1:
-            total = blocks.AllReduce.apply(total, model.dp_groups)
-            count = blocks.AllReduce.apply(count, model.dp_groups)
+        total, count = token_nll_sum(model, model._head(y), labels)
         nll = total / count.clamp(min=1.0)
     else:
         # 0, in the graph of this stage's ticks: its backward runs them

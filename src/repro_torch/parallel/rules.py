@@ -91,6 +91,15 @@ def sanitize_spec(spec: Spec, shape, mesh) -> Spec:
     return tuple(out)
 
 
+def fsdp_dim(spec: Spec, dp_axes) -> int:
+    """The dim of a parameter's sanitized ``spec`` that carries the data
+    axes ``dp_axes`` (the rules' ``dp``: ``fsdp``, or ``moe_d`` where the
+    rules map it), else 0 (a norm, a bias, an axis ``sanitize_spec``
+    dropped): the dim FSDP2 cuts over the data ranks."""
+    return next((i for i, ax in enumerate(spec)
+                 if ax is not None and ax == dp_axes), 0)
+
+
 def _names(ax) -> Tuple[str, ...]:
     if ax is None:
         return ()

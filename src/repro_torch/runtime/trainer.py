@@ -21,9 +21,11 @@ raises without one), or on a ``DeviceMesh`` with axes ``data`` and
   the sanitized rules shard over ``model`` (``LM.place``);
 * then each layer and the root go under FSDP2's ``fully_shard`` over the
   ``dp`` ranks: ZeRO-3, what the reference's ``fsdp`` rule does. FSDP2
-  cuts each parameter along its first dim (the reference's rule names a
-  dim per parameter; either way every parameter, gradient and moment is
-  1/dp a rank). Gradients are summed over the data ranks (each rank's
+  cuts each parameter along the dim its sanitized spec shards over the
+  data axes (``fsdp``, or ``moe_d`` for a MoE's experts:
+  ``parallel.rules.fsdp_dim``; dim 0 where none does, such as a norm), as
+  the reference does, so a block is 1/dp of the parameter wherever the
+  reference's is. Gradients are summed over the data ranks (each rank's
   loss is its share of the global one, ``lm.loss_fn``);
 * the AdamW moments are each rank's blocks (``opt_meta``: sharded like
   their parameters), updated in place on the local blocks;
@@ -55,7 +57,7 @@ from ..models.lm import LM, loss_fn, model_meta
 from ..models.params import axes_size
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..optim.adamw import NormShare, local
-from ..parallel import make_rules, mesh_shape
+from ..parallel import fsdp_dim, logical_shardings, make_rules, mesh_shape
 
 
 @dataclasses.dataclass
@@ -84,7 +86,7 @@ class MeshLayout:
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         if hasattr(self.ref, "device_mesh"):
-            t = _gather_rows(local(t), self.ref)
+            t = _gather_blocks(local(t), self.ref)
         if self.layout is not None:
             t = self.tp.gather(t, self.layout)
         return t
@@ -103,37 +105,42 @@ class MeshLayout:
     def norm_weight(self) -> Optional[torch.Tensor]:
         """Where whole runs stand inside a block cut over ``model``: the
         weight of each element of this rank's local block in the gradient
-        norm (``Runs.weight``, broadcast along its dim and cut to FSDP2's
-        rows), else None."""
+        norm (``Runs.weight``, broadcast along its dim, and cut to FSDP2's
+        block where FSDP2 cuts that dim too), else None."""
         if self.layout is None or not self.layout.mixed:
             return None
         block = local(self.ref)
         w = self.layout.weight(self.tp.size)
-        if hasattr(self.ref, "device_mesh") and self.layout.dim == 0:
-            rows = -(-self.ref.shape[0] // self.ref.device_mesh.size())
+        dim = self.layout.dim
+        if (hasattr(self.ref, "device_mesh")
+                and self.ref.placements[0].dim == dim):
+            rows = -(-self.ref.shape[dim] // self.ref.device_mesh.size())
             first = self.ref.device_mesh.get_local_rank() * rows
-            w = w[first:first + block.shape[0]]
+            w = w[first:first + block.shape[dim]]
         shape = [1] * block.dim()
         shape[self.layout.dim] = -1
         return w.view(shape).to(block.device)
 
 
-def _gather_rows(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+def _gather_blocks(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """The whole tensor of which ``t`` is this rank's FSDP2 block
-    (``ref``: a DTensor laid out the same, sharded by rows over a 1-D mesh
-    in ``torch.chunk``'s blocks), by the c10d all-gather: DTensor's
-    ``full_tensor`` crashes on gloo with CUDA tensors (torch 2.11)."""
+    (``ref``: a DTensor laid out the same, ``Shard(dim)`` over a 1-D mesh
+    in ``torch.chunk``'s blocks along ``dim``), by the c10d all-gather:
+    DTensor's ``full_tensor`` crashes on gloo with CUDA tensors (torch
+    2.11)."""
     from torch.distributed.tensor import Shard
-    if tuple(ref.placements) != (Shard(0),):
+    (place,) = ref.placements
+    if not isinstance(place, Shard):
         raise ValueError(f"FSDP2 blocks laid out as {ref.placements}")
-    group = ref.device_mesh.get_group()
-    ranks, n = torch.distributed.get_world_size(group), ref.shape[0]
-    rows = -(-n // ranks)
-    block = t.new_zeros((rows,) + tuple(t.shape[1:]))
-    block[:t.shape[0]] = t.detach()
+    dim, group = place.dim, ref.device_mesh.get_group()
+    ranks, n = torch.distributed.get_world_size(group), ref.shape[place.dim]
+    shape = list(t.shape)
+    shape[dim] = -(-n // ranks)
+    block = t.new_zeros(shape)
+    block.narrow(dim, 0, t.shape[dim]).copy_(t.detach())
     parts = [torch.empty_like(block) for _ in range(ranks)]
     torch.distributed.all_gather(parts, block, group=group)
-    return torch.cat(parts)[:n]
+    return torch.cat(parts, dim).narrow(dim, 0, n)
 
 
 def _dp_mesh(mesh, rules: Dict[str, Any]):
@@ -146,6 +153,18 @@ def _dp_mesh(mesh, rules: Dict[str, Any]):
     return mesh[dp]._flatten("_".join(dp))
 
 
+def fsdp_dims(mesh, meta: Dict[str, Any], rules: Dict[str, Any]
+              ) -> Dict[str, int]:
+    """``{parameter name: the dim FSDP2 cuts over the data ranks}`` of the
+    ``ParamMeta`` tree ``meta`` (by the LM's names) on ``mesh``: the
+    ``parallel.rules.fsdp_dim`` of each spec the sanitized ``rules``
+    give."""
+    from ..models.lm import _flat
+    return {name: fsdp_dim(sh.spec, rules.get("dp"))
+            for name, sh in _flat(logical_shardings(mesh, meta,
+                                                    rules)).items()}
+
+
 def shard_lm(model: LM, mesh, rules: Dict[str, Any],
              meta: Optional[Dict[str, Any]] = None):
     """Lay ``model`` out on ``mesh`` by ``rules``, in place: tensor
@@ -153,7 +172,8 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
     where the rules keep ``fsdp`` (and it is not sharded already, nor a
     frozen LM on a data axis of one rank: nothing to shard, and FSDP2's
     per-layer hooks cost a serving step host time), FSDP2 over the dp
-    ranks, every layer and then the root (the shared block of
+    ranks, each parameter cut along its ``fsdp_dims`` (a placement FSDP2
+    refuses raises), every layer and then the root (the shared block of
     zamba2 with the root: it runs at several places), the LM's and the
     layers' ``prefill`` and the LM's ``decode_step`` and ``call`` gathering
     their parameters as ``forward`` does. Returns ({name: MeshLayout}, {name:
@@ -162,8 +182,10 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
     ``global_norm``'s ``shard_groups``."""
     from torch.distributed.fsdp import (FSDPModule, fully_shard,
                                         register_fsdp_forward_method)
+    from torch.distributed.tensor import Shard
     if model.mesh is None:
         model.place(mesh, rules, meta)
+    meta = meta if meta is not None else model.meta()
     layouts = model.tp_layouts(meta)
     dp_mesh = _dp_mesh(mesh, rules) if "fsdp" in rules else None
     if dp_mesh is not None and dp_mesh.size() == 1 and not any(
@@ -172,8 +194,11 @@ def shard_lm(model: LM, mesh, rules: Dict[str, Any],
     if dp_mesh is not None and not isinstance(model, FSDPModule):
         layers = [layer for layer in dict.fromkeys(model.layers)
                   if layer is not model.shared]
+        dims = fsdp_dims(mesh, meta, rules)
+        place = {id(p): Shard(dims[n]) for n, p in model.named_parameters()}
         for module in layers + [model]:
-            fully_shard(module, mesh=dp_mesh)
+            fully_shard(module, mesh=dp_mesh,
+                        shard_placement_fn=lambda p: place[id(p)])
         for module in layers + [model]:
             # each rank's loss is its share: sum, do not average
             module.set_gradient_divide_factor(1.0)

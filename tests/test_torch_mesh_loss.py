@@ -18,12 +18,22 @@ and gathers every gradient whole (the trainer's checkpoint layout).
 
 Cases: granite-8b smoke on (2, 2) (the reference's own
 ``check_sharded_train_equivalence`` case) and on (1, 4) (4-way heads, the
-2 K/V heads whole on every rank: the GQA case), an ``fftconv_mlp`` smoke
-LM on (2, 2) (the channel-parallel mixer), phi3.5-moe smoke on (4, 1) with
-4 MoE groups and on (2, 2, 1) (pod, data, model), where FSDP runs over
-the flattened (pod, data) ranks, and zamba2 smoke on (2, 2) (Mamba2 by
-heads, the shared attention block at its place;
-tests/test_torch_mesh_kinds.py has the other kinds). Limits:
+2 K/V heads whole on every rank: the GQA case), granite-3-2b smoke on
+(1, 4) (a tied embedding whose padded vocab, 768 for 515, leaves pad
+columns in two of the four blocks), an ``fftconv_mlp`` smoke LM on (2, 2)
+(the channel-parallel mixer), phi3.5-moe smoke on (4, 1) with 4 MoE
+groups, on (2, 2, 1) (pod, data, model), where FSDP runs over the
+flattened (pod, data) ranks, and with 2 experts on (2, 2) (E/tp = 1 < dp:
+each expert block cut along ``moe_d`` over the data ranks, as the
+reference's is), and zamba2 smoke on (2, 2) (Mamba2 by heads, the shared
+attention block at its place; tests/test_torch_mesh_kinds.py has the
+other kinds). Every case records each parameter's FSDP2 placement
+against ``runtime.trainer.fsdp_dims`` and, with a dispatch mode, every
+op of ``loss_fn`` and its backward that yields a tensor whose last dim
+is the padded vocab: none where ``model`` > 1 cuts the vocab (the
+vocab-parallel embedding, head and cross-entropy); a control runs the
+whole-vocab path (``forward``'s gathered logits into the same
+cross-entropy) and must show them. Limits:
 ``_lm_parity``'s, the loss within 1e-5 of |ref| and each gradient within
 1e-4 of its max|ref|. A control
 drops the row all-reduce of tensor parallelism and must miss them. zamba2
@@ -59,7 +69,9 @@ CASES = {
     "fftconv_2x2": ("olmo_1b", {"segments": (("fftconv_mlp", 2),)}, (2, 2)),
     "phi_4x1": ("phi35_moe_42b", {}, (4, 1)),
     "phi_2x2x1": ("phi35_moe_42b", {}, (2, 2, 1)),   # (pod, data, model)
+    "phi_e2_2x2": ("phi35_moe_42b", {"num_experts": 2}, (2, 2)),
     "zamba2_2x2": ("zamba2_7b", {}, (2, 2)),
+    "granite32_1x4": ("granite_3_2b", {}, (1, 4)),
 }
 KINDS = {"zamba2_4x1": ("zamba2_7b", (4, 1)),
          "xlstm_4x1": ("xlstm_1_3b", (4, 1))}
@@ -85,12 +97,67 @@ def _mesh(dm):
     return make_mesh(dm, names)
 
 
-def _mesh_case(cfg, weights, dm, tmp):
-    """(loss, nll, aux, {name: whole gradient}) of ``cfg`` laid out on the
-    mesh ``dm`` of every rank (``_mesh``), from ``weights`` by name."""
+def _whole_vocab_ops(vocab, d_model, rows):
+    """A dispatch mode whose ``seen`` lists (op, shape) of every op output
+    that is a whole-vocab tensor: its last dim ``vocab`` and the shape of
+    logits or of a head (at least 3 dims, or a first dim of ``d_model`` or
+    of ``rows``, the positions), or the shape (``vocab``, ``d_model``) of
+    an embedding table gathered whole. FSDP2's flat buffers, viewed
+    (dp, n), are none of these."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def whole(t):
+        if not isinstance(t, torch.Tensor) or not t.dim():
+            return False
+        if tuple(t.shape) == (vocab, d_model):
+            return True
+        return t.shape[-1] == vocab and (t.dim() >= 3
+                                         or t.shape[0] in (d_model, rows))
+
+    class Watch(TorchDispatchMode):
+        seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen += [(str(func), tuple(t.shape))
+                          for t in tree_leaves(out) if whole(t)]
+            return out
+    return Watch()
+
+
+def _whole_vocab_loss(model, batch, num_groups):
+    """The control: ``forward``'s whole logits into the cross-entropy of
+    a model whose vocab is whole."""
+    from repro_torch.models import lm
+    logits, _ = model(batch, num_groups)
+    model.vocab_cut = lambda: False
+    try:
+        total, count = lm.token_nll_sum(model, logits, batch["labels"])
+    finally:
+        del model.vocab_cut
+    return total / count.clamp(min=1.0)
+
+
+def _placement(model, tr):
+    """{name: [FSDP2 dim, fsdp_dims's dim, local shape]} of each
+    parameter."""
+    from repro_torch.runtime.trainer import fsdp_dims
+    want = fsdp_dims(tr.mesh, tr.meta, tr.rules)
+    return {n: [p.placements[0].dim, want[n], list(p.to_local().shape)]
+            for n, p in model.named_parameters()}
+
+
+def _mesh_case(cfg, weights, dm, tmp, control=False):
+    """(loss, nll, aux, {name: whole gradient}, the whole-vocab ops of the
+    loss and its backward, the placements) of ``cfg`` laid out on the mesh
+    ``dm`` of every rank (``_mesh``), from ``weights`` by name; with
+    ``control``, the loss of ``_whole_vocab_loss``."""
     import torch
     from repro_torch.models import LM, loss_fn
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import padded_vocab
     from repro_torch.runtime import Trainer, TrainerConfig
     whole = LM(cfg, device="cpu")
     if weights is not None:
@@ -101,12 +168,20 @@ def _mesh_case(cfg, weights, dm, tmp):
                  _mesh(dm),
                  TrainerConfig(ckpt_dir=str(tmp), seed=SEED), model=whole)
     model, _, _ = tr.init_state()
-    loss, metrics = loss_fn(model, tr.batch_at(0), tr.num_groups)
-    loss.backward()
+    batch = tr.batch_at(0)
+    watch = _whole_vocab_ops(padded_vocab(cfg), cfg.d_model,
+                             batch["labels"].numel())
+    with watch:
+        if control:
+            loss = _whole_vocab_loss(model, batch, tr.num_groups)
+            metrics = {"nll": loss, "aux": loss}
+        else:
+            loss, metrics = loss_fn(model, batch, tr.num_groups)
+        loss.backward()
     grads = {n: tr.shardings["params"][n].gather(p.grad).numpy()
              for n, p in model.named_parameters()}
     return (float(loss), float(metrics["nll"]), float(metrics["aux"]),
-            grads)
+            grads, watch.seen, _placement(model, tr))
 
 
 def _port_rank(rank, store_path, in_path, out_path):
@@ -131,9 +206,12 @@ def _port_rank(rank, store_path, in_path, out_path):
     for name, (arch, changes, dm) in CASES.items():
         weights = {k.split("/", 2)[2]: ref[k] for k in ref.files
                    if k.startswith(f"{name}/param/")}
-        loss, nll, aux, grads = _mesh_case(cfg_of(arch, changes), weights,
-                                           dm, tmp)
-        meta[name] = dict(loss=loss, nll=nll, aux=aux)
+        loss, nll, aux, grads, seen, placed = _mesh_case(
+            cfg_of(arch, changes), weights, dm, tmp)
+        ranks = [None] * WORLD
+        dist.all_gather_object(ranks, placed)
+        meta[name] = dict(loss=loss, nll=nll, aux=aux, whole_vocab=seen,
+                          placed=ranks)
         out.update({f"{name}/grad/{k}": v for k, v in grads.items()})
 
     # the control: tensor parallelism without the row all-reduce
@@ -143,17 +221,26 @@ def _port_rank(rank, store_path, in_path, out_path):
     reduce = blocks.TensorParallel.reduce
     blocks.TensorParallel.reduce = lambda self, y, dtype: y
     try:
-        loss, _, _, grads = _mesh_case(cfg_of(arch, changes), weights, dm,
-                                       tmp)
+        loss, _, _, grads, _, _ = _mesh_case(cfg_of(arch, changes), weights,
+                                             dm, tmp)
     finally:
         blocks.TensorParallel.reduce = reduce
     meta["control"] = dict(loss=loss)
     out.update({f"control/grad/{k}": v for k, v in grads.items()})
 
+    # the whole-vocab control: the same loss, whole-vocab tensors in it
+    for name in ("granite_2x2", "granite_1x4"):
+        arch, changes, dm = CASES[name]
+        weights = {k.split("/", 2)[2]: ref[k] for k in ref.files
+                   if k.startswith(f"{name}/param/")}
+        loss, _, _, _, seen, _ = _mesh_case(cfg_of(arch, changes), weights,
+                                            dm, tmp, control=True)
+        meta[f"whole_vocab_{name}"] = dict(loss=loss, seen=seen)
+
     # every layer kind under FSDP, against the port on one device
     for name, (arch, dm) in KINDS.items():
         cfg = cfg_of(arch, {})
-        loss, nll, aux, grads = _mesh_case(cfg, None, dm, tmp)
+        loss, nll, aux, grads, _, _ = _mesh_case(cfg, None, dm, tmp)
         single = LM(cfg, device="cpu")
         batch = SyntheticDataset(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
                                  SEED).batch_at(0)
@@ -251,6 +338,45 @@ def test_loss_and_gradients_match_the_references(runs, case):
         assert abs(meta[case][key] - want) <= LOSS_TOL * abs(want), (
             key, meta[case][key], want)
     assert _misses(ours, ref, case, case) == []
+
+
+@pytest.mark.parametrize("case", [c for c, (_, _, dm) in CASES.items()
+                                  if dm[-1] > 1])
+def test_no_op_of_the_loss_yields_a_whole_vocab_tensor(runs, case):
+    assert runs[3][case]["whole_vocab"] == []
+
+
+@pytest.mark.parametrize("case", ["granite_2x2", "granite_1x4"])
+def test_the_whole_vocab_path_shows_whole_vocab_tensors(runs, case):
+    ref_meta, meta = runs[1], runs[3]
+    control = meta[f"whole_vocab_{case}"]
+    # the same loss (no aux loss in a dense model), whole-vocab tensors
+    assert abs(control["loss"] - ref_meta[case]["loss"]) <= LOSS_TOL * abs(
+        ref_meta[case]["loss"])
+    assert any(shape[-1] == 512 and len(shape) == 3
+               for _, shape in control["seen"]), control["seen"][:5]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fsdp2_cuts_each_parameter_along_the_rules_dim(runs, case):
+    for rank, placed in enumerate(runs[3][case]["placed"]):
+        for name, (got, want, _) in placed.items():
+            assert got == want, (rank, name, got, want)
+
+
+def test_two_experts_on_2x2_are_cut_along_moe_d_on_both_data_ranks(runs):
+    from repro_torch import configs
+    d = configs.get_smoke_config("phi35_moe_42b").d_model
+    placed = runs[3]["phi_e2_2x2"]["placed"]
+    experts = [n for n in placed[0] if ".moe.w_" in n]
+    assert experts
+    for rank, by_name in enumerate(placed):      # ranks (data, model) 2 x 2
+        for name in experts:
+            dim, _, shape = by_name[name]
+            assert dim == (2 if name.endswith("w_down") else 1), name
+            # one expert a model rank, half its d on each data rank
+            assert shape[0] == 1 and shape[dim] == d // 2, (rank, name,
+                                                             shape)
 
 
 def test_tensor_parallelism_without_the_row_all_reduce_misses(runs):

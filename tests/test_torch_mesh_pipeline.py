@@ -32,6 +32,9 @@ thread each; they never import JAX). On them:
 * zamba2 smoke (not a uniform ``attn_mlp`` stack) with ``pipeline=True``
   on (2, 2, 1): a plain train cell, its pod ranks replicas, its loss and
   gradients at the same limits;
+* on (2, 1, 2), no op of ``pipelined_loss_fn`` or its backward, on any
+  stage, yields a whole-vocab tensor (logits, a head, an embedding table:
+  ``test_torch_mesh_loss._whole_vocab_ops``);
 * FSDP2's all-gathers and reduce-scatters of each pipelined step (a
   layer used M + S - 1 times a step), counted by the dry run's
   ``StepCounter``, equal to ``launch.dryrun.fsdp_collectives``'s count;
@@ -137,11 +140,15 @@ def _lm_case(model_name, dm, weights, batch):
     config the pipeline does not take, plain) train cell of
     ``model_name`` on the mesh ``dm``, from ``weights``."""
     import torch
+    import torch.distributed as dist
     from repro_torch.launch import dryrun
+    from repro_torch.runtime.trainer import fsdp_dims
     from repro_torch.launch.specs import build_cell
     from repro_torch.models import LM, loss_fn
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import padded_vocab
     from repro_torch.optim import adamw_init
+    from test_torch_mesh_loss import _whole_vocab_ops
     from repro_torch.optim.adamw import local
     from repro_torch.parallel import pipelined_lm
     cfg = _cfg(model_name)
@@ -164,10 +171,12 @@ def _lm_case(model_name, dm, weights, batch):
                 for n, t in tree.items()}
 
     counter = dryrun.StepCounter()
+    watch = _whole_vocab_ops(padded_vocab(cfg), cfg.d_model,
+                             BATCH // dp * SEQ)
     with_grad = set()
     hooks = [p.register_post_accumulate_grad_hook(
         lambda p: with_grad.add(id(p))) for p in model.parameters()]
-    with counter:
+    with counter, watch:
         if cell.pipelined:
             loss, _ = pipelined_lm.pipelined_loss_fn(
                 model, rows, mesh, cell.rules, num_microbatches=MICRO)
@@ -176,6 +185,10 @@ def _lm_case(model_name, dm, weights, batch):
         loss.backward()
     for hook in hooks:
         hook.remove()
+    # every stage's: the head and the loss run on the last
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, watch.seen)
+    seen = [op for ops in seen for op in ops]
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in model.named_parameters()}
     if cell.pipelined:
@@ -185,7 +198,10 @@ def _lm_case(model_name, dm, weights, batch):
     fsdp = {}
     if cell.pipelined and dp > 1:
         uses = pipelined_lm.microbatches(BATCH // dp, MICRO) + dm[0] - 1
-        want = dryrun.fsdp_collectives(model, dp, uses, True, with_grad)
+        names = fsdp_dims(mesh, model.meta(), cell.rules)
+        dims = {id(p): names[n] for n, p in model.named_parameters()}
+        want = dryrun.fsdp_collectives(model, dp, uses, True, with_grad,
+                                       dims)
         got = [e for e, op in zip(counter.events, counter.ops)
                if op in ("_allgather_base_", "_reduce_scatter_base_")]
         fsdp = {"got": [[b, n, g] for b, n, g in got],
@@ -198,7 +214,7 @@ def _lm_case(model_name, dm, weights, batch):
     out.update({f"mu/{k}": v for k, v in whole_of(opt["mu"]).items()})
     meta = dict(loss=float(loss), grad_norm=float(metrics["grad_norm"]),
                 step_loss=float(metrics["loss"]), pipelined=cell.pipelined,
-                fsdp=fsdp)
+                fsdp=fsdp, whole_vocab=seen)
     return meta, _collect(mesh, out)
 
 
@@ -399,6 +415,16 @@ def test_a_config_the_pipeline_does_not_take_trains_plainly(runs):
     assert not meta["plain"]["pipelined"]
     assert _rel(meta["plain"]["loss"], ref_meta[model]["loss"]) <= LOSS_TOL
     assert _misses(ours, ref, "plain", model, "grad", GRAD_TOL) == []
+
+
+@pytest.mark.parametrize("case", [c for c, (_, dm) in CASES.items()
+                                  if dm[-1] > 1])
+def test_no_op_of_the_pipelined_loss_yields_a_whole_vocab_tensor(runs,
+                                                                 case):
+    """On (2, 1, 2) the last stage's head and cross-entropy, and their
+    backward, hold the vocab in blocks: no op yields whole-vocab logits,
+    a whole head or a whole embedding table."""
+    assert runs[3][case]["whole_vocab"] == []
 
 
 @pytest.mark.parametrize("case", [c for c, (_, dm) in CASES.items()

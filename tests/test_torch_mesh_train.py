@@ -18,7 +18,10 @@ thread each; they never import JAX). On them:
   parameters within ``RUN_PARAM_TOL`` (test_torch_train.py) of its;
 * its step-2 checkpoint restored on (2, 1) (ranks 0-1) and on one device
   (rank 0), each trained on to step 4: the losses of steps 3-4 within
-  1e-5 of the uninterrupted run's;
+  1e-5 of the uninterrupted run's; FSDP2 cut the (2, 2) run's parameters
+  along the rules' dims, some along a dim other than the first (the
+  attention's out-projection, the MLP's down-projection, the embedding),
+  so the checkpoint gathers and cuts such blocks;
 * the AdamW moments: each rank holds its block (at most 1/dp of every
   tensor), and ``grad_accum=2`` on (2, 2) lands within the tolerance of
   tests/test_trainer_features.py of one batch;
@@ -99,6 +102,8 @@ def _port_rank(rank, store_path, in_path, out_dir):
     tr = _trainer(mesh, out_dir / "run22", model=whole)
     model, opt, hist = tr.run(STEPS)
     meta["run22"] = [h["loss"] for h in hist]
+    meta["fsdp_dims"] = {n: p.placements[0].dim
+                         for n, p in model.named_parameters()}
     for name, p in model.named_parameters():
         full = tr.shardings["params"][name].gather(p)
         if rank == 0:
@@ -205,6 +210,8 @@ def test_a_2x2_trainer_matches_the_references(runs):
 def test_a_2x2_checkpoint_resumes_on_another_mesh(runs, where):
     meta = runs[3]
     resumed, uninterrupted = meta[where], meta["run22"][2:]
+    for name in ("embed", "layers.0.attn.wo", "layers.0.mlp.w_down"):
+        assert meta["fsdp_dims"][name] > 0, (name, meta["fsdp_dims"])
     assert len(resumed) == STEPS - 2
     for got, want in zip(resumed, uninterrupted):
         assert abs(got - want) <= LOSS_TOL * abs(want), (where, got, want)
