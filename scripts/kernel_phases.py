@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Where a CTA of the FFT kernels spends its time, pass by pass, on the GPU.
+"""Where the FFT kernels spend their time, stage by stage, on the GPU.
 
     python3 scripts/kernel_phases.py
 
 run from the root of a checkout on a machine with a CUDA card and nvcc.
-It builds copies of ``dft_matmul.cu`` and ``fftconv.cu`` under
-``build/kernel_phases/`` in which thread 0 of one chosen CTA records the SM
-clock (``clock64``) when the kernel starts and after the barrier that ends
-every radix pass, runs each kernel at its main-path shape (the four-step
-at (8193, 16384) and (262144, 512), natural and permuted; the fused
-convolution at (8192, 16384)) three times for a CTA early, in the middle
-and late in the grid, and prints the cycles of each phase of the last run.
-Phase 0 runs from the kernel's start to the end of its first pass (the
-tables and the loads from device memory); the four-step's permuted
-copy-out after its last pass is not a phase. The sources in the package
-are not touched.
+It builds instrumented copies of ``dft_matmul.cu`` and ``fftconv.cu`` under
+``build/kernel_phases/`` (the sources in the package are not touched), runs
+each kernel at its main-path shape three times, and prints the SM clock
+cycles (``clock64`` of thread 0) of each stage of one unit of work in the
+last run, for a unit early, in the middle and late in the launch.
+
+- The four-step kernel (natural and permuted, at (8193, 16384), (128, 128)
+  and (262144, 512), (32, 16)) marks its stages with ``FOUR_STEP_MARK``:
+  the unit is a row (BIG) or a batch of rows, and its persistent CTA's
+  stages are, for a BIG row, per group of columns: the wait on the tile
+  ring, DFT_n1's first pass from the ring and the barrier after it (which
+  also starts the next group's copies), DFT_n1's later passes; then the
+  barrier closing DFT_n1, DFT_n2 but its last pass, and the last pass with
+  the store (or the permuted copy-out). For a batch of short rows: starting
+  the next batch's copies and waiting on this one's, DFT_n1, DFT_n2 but
+  its last pass, the last pass with the store.
+- The fused convolution (8192, 16384) has thread 0 of one chosen CTA
+  record the clock when the kernel starts and after the barrier that ends
+  every radix pass (phase 0 runs to the end of its first pass, the tables
+  and the loads from device memory).
 """
 
 from __future__ import annotations
@@ -37,14 +46,24 @@ from repro_torch.kernels.fftconv import ops as conv_ops  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_phases"
 RUNS = 3
-MARK = ("do { if (threadIdx.x == 0 && blockIdx.x == fft_radix::g_block) "
-        "fft_radix::g_clock[fft_radix::g_marks++] = clock64(); } while (0)")
+GLOBALS = ("__device__ long long g_clock[64];\n__device__ int g_marks;\n"
+           "__device__ long long g_unit;\n")
+# fftconv.cu: one CTA's passes (the header's transform, after its barrier)
+MARK = ("do { if (threadIdx.x == 0 && blockIdx.x == fft_radix::g_unit "
+        "&& fft_radix::g_marks < 64) fft_radix::g_clock[fft_radix::g_marks++]"
+        " = clock64(); } while (0)")
+# dft_matmul.cu: one row or batch, whichever CTA takes it
+FOUR_STEP_MARK = ("#define FOUR_STEP_MARK(unit) do { if (threadIdx.x == 0 && "
+                  "(long long)(unit) == g_unit && g_marks < 64) "
+                  "g_clock[g_marks++] = clock64(); } while (0)\n")
 READ = """
-extern "C" void read_marks(long long* out, int next_block) {
-  cudaMemcpyFromSymbol(out, fft_radix::g_clock, sizeof(long long) * 64);
+extern "C" void read_marks(long long* out, long long next_unit) {
+  cudaMemcpyFromSymbol(out, NS g_clock, sizeof(long long) * 64);
+  const long long none[64] = {};
+  cudaMemcpyToSymbol(NS g_clock, none, sizeof(none));
   const int zero = 0;
-  cudaMemcpyToSymbol(fft_radix::g_marks, &zero, sizeof(int));
-  cudaMemcpyToSymbol(fft_radix::g_block, &next_block, sizeof(int));
+  cudaMemcpyToSymbol(NS g_marks, &zero, sizeof(int));
+  cudaMemcpyToSymbol(NS g_unit, &next_unit, sizeof(long long));
 }
 """
 
@@ -58,35 +77,44 @@ def _replace_once(text: str, old: str, new: str) -> str:
 def build() -> dict:
     """Instrumented copies of the two kernels, compiled; name -> CDLL."""
     shutil.rmtree(OUT, ignore_errors=True)
-    (OUT / "common").mkdir(parents=True)
-    header = (_build.KERNELS_DIR / "common" / "fft_radix.cuh").read_text()
+    kernels = _build.KERNELS_DIR
+    # the four-step: its own marks, the headers as they are
+    shutil.copytree(kernels / "common", OUT / "four" / "common")
+    (OUT / "four" / "dft_matmul").mkdir(parents=True)
+    src = (kernels / "dft_matmul" / "dft_matmul.cu").read_text()
+    src = _replace_once(src, "#ifndef FOUR_STEP_MARK",
+                        GLOBALS + FOUR_STEP_MARK + "#ifndef FOUR_STEP_MARK")
+    four = OUT / "four" / "dft_matmul" / "dft_matmul.cu"
+    four.write_text(src + READ.replace("NS ", ""))
+    # the fused convolution: a mark after every pass of transform()
+    (OUT / "conv" / "common").mkdir(parents=True)
+    header = (kernels / "common" / "fft_radix.cuh").read_text()
     header = _replace_once(
         header, "namespace fft_radix {",
-        "namespace fft_radix {\n__device__ long long g_clock[64];\n"
-        "__device__ int g_marks;\n__device__ int g_block;\n"
-        f"#define FFT_PHASE_MARK() {MARK}\n")
-    # after the barrier that ends each pass of transform()
+        "namespace fft_radix {\n" + GLOBALS
+        + f"#define FFT_PHASE_MARK() {MARK}\n")
     header = _replace_once(
         header, "        [&](int r, int l, int p, float2 v) { store(i, r, l, p, v); });\n"
         "    __syncthreads();\n",
         "        [&](int r, int l, int p, float2 v) { store(i, r, l, p, v); });\n"
         "    __syncthreads();\n    FFT_PHASE_MARK();\n")
-    (OUT / "common" / "fft_radix.cuh").write_text(header)
+    (OUT / "conv" / "common" / "fft_radix.cuh").write_text(header)
+    (OUT / "conv" / "fftconv").mkdir()
+    src = (kernels / "fftconv" / "fftconv.cu").read_text()
+    src = _replace_once(src, "  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;\n",
+                        "  FFT_PHASE_MARK();\n"
+                        "  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;\n")
+    # the merged pass ends outside transform()
+    src = _replace_once(src, "    __syncthreads();\n  }\n  fft_radix::transform<BIG, true, true, false>(",
+                        "    __syncthreads();\n    FFT_PHASE_MARK();\n  }\n"
+                        "  fft_radix::transform<BIG, true, true, false>(")
+    conv = OUT / "conv" / "fftconv" / "fftconv.cu"
+    conv.write_text(src + READ.replace("NS ", "fft_radix::"))
     procs = {}
-    for name in ("dft_matmul", "fftconv"):
-        src = (_build.KERNELS_DIR / name / f"{name}.cu").read_text()
-        src = _replace_once(src, "  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;\n",
-                            "  FFT_PHASE_MARK();\n"
-                            "  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;\n")
-        if name == "fftconv":      # the merged pass ends outside transform()
-            src = _replace_once(src, "    __syncthreads();\n  }\n  fft_radix::transform<BIG, true, true, false>(",
-                                "    __syncthreads();\n    FFT_PHASE_MARK();\n  }\n"
-                                "  fft_radix::transform<BIG, true, true, false>(")
-        (OUT / name).mkdir()
-        (OUT / name / f"{name}.cu").write_text(src + READ)
+    for name, path in (("dft_matmul", four), ("fftconv", conv)):
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
-             str(OUT / name / f"{name}.cu")],
+             str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -94,22 +122,36 @@ def build() -> dict:
         if proc.returncode:
             raise RuntimeError(f"kernel_phases: nvcc failed on {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
-        libs[name].read_marks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        libs[name].read_marks.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
     return libs
 
 
-def phases(lib, block: int, launch) -> list:
-    """Cycles of each phase of CTA `block` in the last of RUNS launches."""
+def phases(lib, unit: int, launch) -> list:
+    """Cycles of each stage of `unit` in the last of RUNS launches."""
     marks = (ctypes.c_longlong * 64)()
-    lib.read_marks(ctypes.addressof(marks), block)
+    lib.read_marks(ctypes.addressof(marks), unit)
     for _ in range(RUNS):
-        launch()
+        rc = launch()
+        if rc:
+            raise RuntimeError(f"kernel_phases: launch failed with code {rc}")
     torch.cuda.synchronize()
-    lib.read_marks(ctypes.addressof(marks), 0)
+    lib.read_marks(ctypes.addressof(marks), -1)
     got = [m for m in marks if m]
     per = len(got) // RUNS
     last = got[(RUNS - 1) * per:RUNS * per]
     return [b - a for a, b in zip(last, last[1:])]
+
+
+def four_step_stages(n2: int, big: bool) -> list:
+    """The names of the four-step kernel's stages of one unit."""
+    if not big:
+        return ["start next + wait", "DFT_n1", "DFT_n2 but last pass",
+                "last pass + store"]
+    names = []
+    for g in range((n2 + 63) // 64):
+        names += [f"wait ring g{g}", f"DFT_n1 pass 0 g{g} + barrier",
+                  f"DFT_n1 later passes g{g}"]
+    return names + ["barrier", "DFT_n2 but last pass", "last pass + store"]
 
 
 def main() -> int:
@@ -128,23 +170,28 @@ def main() -> int:
     four = libs["dft_matmul"]
     four.four_step_fft.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for shape, f, rows_per_cta in (((8193, 16384), (128, 128), 1),
-                                   ((262144, 512), (32, 16), 16)):
+    four.four_step_fft.restype = ctypes.c_int
+    for shape, f, rows_per_unit in (((8193, 16384), (128, 128), 1),
+                                    ((262144, 512), (32, 16), 16)):
         x = [torch.randn(shape, device="cuda", generator=gen) for _ in "ri"]
         y = [torch.empty_like(t) for t in x]
         r1, tw, r2 = dft_ops.tables(*f, x[0].device)
-        ctas = shape[0] // rows_per_cta
+        units = shape[0] // rows_per_unit
+        names = four_step_stages(f[1], rows_per_unit == 1)
         for permuted in (0, 1):
-            for block in (0, ctas // 2, ctas - 2):
-                cycles = phases(four, block, lambda: four.four_step_fft(
+            for unit in (0, units // 2, units - 2):
+                cycles = phases(four, unit, lambda: four.four_step_fft(
                     ptr(x[0]), ptr(x[1]), ptr(r1), ptr(tw), ptr(r2), ptr(y[0]),
                     ptr(y[1]), shape[0], f[0], f[1], 0, permuted, stream()))
-                print(f"four_step_fft {shape} {f} permuted={permuted} CTA "
-                      f"{block}: cycles per phase {cycles}, total {sum(cycles)}")
+                named = ", ".join(f"{k} {c}" for k, c in zip(names, cycles))
+                print(f"four_step_fft {shape} {f} permuted={permuted} "
+                      f"{'row' if rows_per_unit == 1 else 'batch'} {unit}: "
+                      f"{named}; total {sum(cycles)}")
         del x, y
     conv = libs["fftconv"]
     conv.fftconv_fused.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    conv.fftconv_fused.restype = ctypes.c_int
     x = torch.randn((8192, 16384), device="cuda", generator=gen)
     y = torch.empty_like(x)
     h = torch.randn(16384, device="cuda", generator=gen)

@@ -92,9 +92,11 @@ class HardwareSpec:
 # matmul_dim is the register tile (8 columns) of the four-step kernel's
 # dense first design, which still prices the torch.matmul plans; vmem_bytes
 # is the 50 MB L2. fft_share is the four-step kernel's share of its bound
-# at these flops and hbm_bw at (8193, 16384), (128, 128): the median of 5
-# cards' calibrate.four_step_share, 0.4948-0.5323 (1.357-1.460 ms; chip_smoke
-# phase 1 and scripts/dist_times.py, cards of that kind). collective_lat
+# at these flops and hbm_bw at (8193, 16384), (128, 128), for the kernel
+# of persistent CTAs staging the next row by TMA: the median of 3 runs of
+# `python -m repro_torch.calibrate` on one card of that kind,
+# four_step_share 0.5957-0.6142 (1.176-1.212 ms; the design before it
+# reached 0.4948-0.5323 on 5 cards). collective_lat
 # is the cost of one NCCL all_to_all_single call of 1 KiB across 4
 # NVLink-connected cards of that kind, where the verdicts at p > 1 are
 # made: the median of 5 runs of 200 calls, 49.88-77.90 us
@@ -103,7 +105,7 @@ class HardwareSpec:
 # exchange overlaps no DFT pass.
 H100 = HardwareSpec("h100", flops=51.33e12, hbm_bw=2.974e12, link_bw=450e9,
                     matmul_dim=8, vmem_bytes=50 * 2 ** 20,
-                    collective_lat=5.240e-5, fft_share=0.5249,
+                    collective_lat=5.240e-5, fft_share=0.6119,
                     pipelined_hides_compute=False)
 # collective_lat: one gloo all_to_all_single call of 1 KiB at world size 1
 # on an 8-core x86-64 CPU (`python -m repro_torch.calibrate --gloo`, the

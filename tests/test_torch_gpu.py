@@ -57,6 +57,30 @@ def test_four_step_kernel_matches_plain(cuda, factors, karatsuba, permuted):
         assert (a - b).abs().max().item() <= 1e-4 * scale
 
 
+# Row counts that walk the persistent CTAs: one row, fewer and more rows
+# than the card's SMs, the rfftn column pass's 8193; at (32, 16) batches of
+# 8 rows with a ragged last one. offset 1 starts the input one float past
+# 16-byte alignment, which the 4-byte copies take instead of the bulk ones.
+@pytest.mark.parametrize("factors,rows", [((128, 128), 1), ((128, 128), 131),
+                                          ((128, 128), 133),
+                                          ((128, 128), 8193),
+                                          ((32, 16), 4229)])
+@pytest.mark.parametrize("karatsuba", [False, True])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_four_step_kernel_persistent_rows(cuda, factors, rows, karatsuba,
+                                          permuted, offset):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n = factors[0] * factors[1]
+    x = tuple(torch.randn(rows * n + offset, device=cuda,
+                          generator=g)[offset:].view(rows, n) for _ in "ri")
+    k = fft_four_step(x, factors, karatsuba=karatsuba, permuted=permuted)
+    r = fft_four_step_ref(x, factors, karatsuba=karatsuba, permuted=permuted)
+    scale = r[0].abs().max().item() + 1e-6
+    for a, b in zip(k, r):
+        assert (a - b).abs().max().item() <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32,
                                    torch.int32, torch.float64])
 @pytest.mark.parametrize("shape", [(3, 40, 56), (96, 160), (1, 1),

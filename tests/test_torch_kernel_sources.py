@@ -25,6 +25,10 @@ from repro_torch.kernels.dft_matmul import ops as dft_ops
 from repro_torch.kernels.fftconv.ref import filter_spectrum_plain
 
 HOST = Path(__file__).resolve().parent / "cuda_host"
+ASYNC_COPY = ("align128", "make_tile_map", "mbar_init", "mbar_init_fence",
+              "mbar_arrive_expect_tx", "mbar_wait", "fence_proxy_async",
+              "tile_load", "bulk_load", "copy4", "mbar_arrive_copies")
+COPY4, BULK, TILE = 0, 1, 2     # the stand-in's copy counters
 RNG = np.random.default_rng(13)
 
 
@@ -47,6 +51,11 @@ def lib(tmp_path_factory):
     header = (_build.KERNELS_DIR / "common" / "fft_radix.cuh").read_text()
     assert "extern __shared__ float4 fft_radix_smem[];" in header
     (out / "common" / "fft_radix.cuh").write_text(_host_source(header))
+    # the stand-in defines async_copy's functions in place of its PTX
+    copies = (_build.KERNELS_DIR / "common" / "async_copy.cuh").read_text()
+    for name in ASYNC_COPY:
+        assert f" {name}(" in copies, name
+    (out / "common" / "async_copy.cuh").write_text("#pragma once\n")
     procs = []
     for name in ("dft_matmul", "fftconv"):
         src = (_build.KERNELS_DIR / name / f"{name}.cu").read_text()
@@ -67,16 +76,31 @@ def lib(tmp_path_factory):
     so["dft_matmul"].four_step_fft.argtypes = [ptr] * 7 + [i64] + [i32] * 4 \
         + [ptr]
     so["dft_matmul"].four_step_fft.restype = i32
+    so["dft_matmul"].host_cuda_bytes_copied.argtypes = [i32]
+    so["dft_matmul"].host_cuda_bytes_copied.restype = ctypes.c_longlong
     so["fftconv"].fftconv_fused.argtypes = [ptr] * 6 + [i64] + [i32] * 3 \
         + [ptr]
     so["fftconv"].fftconv_fused.restype = i32
     return so
 
 
-def _four_step(lib, x, factors, karatsuba=False, permuted=False):
+def _planes(x, offset):
+    """x's real and imaginary planes as float32 tensors that start `offset`
+    floats into a 16-byte aligned buffer."""
+    out = []
+    for part in (x.real, x.imag):
+        buf = torch.empty(x.size + offset + 4, dtype=torch.float32)
+        skip = (-buf.data_ptr() // 4) % 4 + offset
+        t = buf[skip:skip + x.size].view(x.shape)
+        t.copy_(torch.from_numpy(part.astype(np.float32)))
+        assert t.data_ptr() % 16 == 4 * (offset % 4)
+        out.append(t)
+    return out
+
+
+def _four_step(lib, x, factors, karatsuba=False, permuted=False, offset=0):
     n1, n2 = factors
-    a = torch.from_numpy(x.real.astype(np.float32).copy())
-    b = torch.from_numpy(x.imag.astype(np.float32).copy())
+    a, b = _planes(x, offset)
     yr, yi = torch.full_like(a, np.nan), torch.full_like(b, np.nan)
     r1, tw, r2 = dft_ops.tables(n1, n2, torch.device("cpu"))
     rc = lib["dft_matmul"].four_step_fft(
@@ -123,6 +147,59 @@ def test_four_step_source_modes_and_many_ctas(lib, karatsuba, rows):
         assert rc == 0
         ref = _expected(x, factors, permuted)
         assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref.real).max()
+
+
+def _copied(lib):
+    """Input bytes each copy path of the stand-in took since the last call."""
+    return [lib["dft_matmul"].host_cuda_bytes_copied(k)
+            for k in (COPY4, BULK, TILE)]
+
+
+# Persistent CTAs: the stand-in reports 2 SMs of one CTA, so BIG rows
+# (128 x 128) are walked two CTAs at a time, and 70 rows of 512 are five
+# batches of 16 (the last of 6), three through one CTA's two stages.
+@pytest.mark.parametrize("karatsuba", [False, True])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("factors,rows,path", [((128, 128), 3, TILE),
+                                               ((128, 128), 5, TILE),
+                                               ((32, 16), 70, BULK)])
+def test_four_step_source_persistent_ctas(lib, factors, rows, path,
+                                          karatsuba, permuted):
+    x = _randc((rows, factors[0] * factors[1]))
+    _copied(lib)
+    rc, y = _four_step(lib, x, factors, karatsuba, permuted)
+    assert rc == 0
+    # every input byte came in once, by the path the shape takes
+    want = [0, 0, 0]
+    want[path] = x.size * 8
+    assert _copied(lib) == want
+    ref = _expected(x, factors, permuted)
+    assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref.real).max()
+
+
+# The shapes and inputs that take the other copy paths: an input one float
+# off 16-byte alignment, n2 (BIG) or n (short rows) not a multiple of 4
+# take 4-byte copies. (96, 100) takes TMA boxes with a last group of 36
+# columns (a box of 32 columns, 4 of them in the row, and an empty tile);
+# (127, 65) a generic radix-127 DFT_n1 of one pass that reads the ring and
+# multiplies by T.
+@pytest.mark.parametrize("factors,rows,offset,path", [
+    ((128, 128), 3, 1, COPY4), ((32, 16), 37, 1, COPY4),
+    ((127, 65), 3, 0, COPY4), ((96, 100), 3, 0, TILE),
+    ((7, 3), 700, 0, COPY4), ((25, 40), 33, 0, BULK)])
+def test_four_step_source_staging_paths(lib, factors, rows, offset, path):
+    x = _randc((rows, factors[0] * factors[1]))
+    _copied(lib)
+    for permuted in (False, True):
+        rc, y = _four_step(lib, x, factors, permuted=permuted, offset=offset)
+        assert rc == 0
+        ref = _expected(x, factors, permuted)
+        assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref.real).max()
+    copied = _copied(lib)
+    assert [c > 0 for c in copied] == [k == path for k in range(3)]
+    # a box covers whole tiles; the others copy each input byte once
+    assert copied[path] == 2 * x.size * 8 or (
+        path == TILE and copied[path] > 2 * x.size * 8)
 
 
 def test_four_step_source_refuses_bad_factors(lib):

@@ -108,7 +108,10 @@ def test_build_target_follows_the_kernels_headers(tmp_path):
     # so an edited header rebuilds the kernels that include it (pure Python)
     from repro_torch.kernels import _build
     kernels_dir = tmp_path / "kernels"
-    for rel in ("dft_matmul/dft_matmul.cu", "common/fft_radix.cuh"):
+    headers = sorted(p.relative_to(_build.KERNELS_DIR).as_posix()
+                     for p in (_build.KERNELS_DIR / "common").glob("*.cuh"))
+    assert "common/async_copy.cuh" in headers
+    for rel in ("dft_matmul/dft_matmul.cu", *headers):
         (kernels_dir / rel).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(_build.KERNELS_DIR / rel, kernels_dir / rel)
     src = kernels_dir / "dft_matmul" / "dft_matmul.cu"
