@@ -118,7 +118,7 @@ run from the root of a checkout. Phases, each of which raises on failure:
    traced prefills and decode steps;
 16. serve the other layer kinds the same way (bfloat16 compute, weights
    cast once, 4 prompts of 2048 tokens, batch 4, 16 new tokens each):
-   xlstm-1.3b (mLSTM, sLSTM) at full width on 24 of its 48 layers,
+   xlstm-1.3b (mLSTM, sLSTM) at full width on 16 of its 48 layers,
    zamba2-7b (Mamba2 and its shared attention block), qwen2-vl-7b
    (M-RoPE), musicgen-large (rope none) in full, and phi3.5-moe at full
    width on 8 of its 32 layers; none launches a kernel
@@ -283,9 +283,12 @@ CMUL_CASES = [((3, 40, 56), (3, 40, 56)), ((4, 300), (300,)),
               ((4096, 64), (64,))]
 CMUL_BLOCKS = (1, 3, 256, 1024, 4096)
 FUSED_FACTORS = [(8, 8), (16, 32), (64, 64), (128, 8), (128, 128), (11, 13),
-                 (127, 1), (6, 10)]
+                 (127, 1), (6, 10), (16, 128), (96, 100), (127, 65)]
 FUSED_BLOCK_ROWS = (1, 4, 8)
 FUSED_BATCHES = (5, 6)     # the kernel pairs rows: an odd batch pads one
+# the fused kernel's short-row design timed beside the path's shape: rows
+# of 512 (32 x 16), the four-step's short-row shape
+FUSED_SHORT = (262144, (32, 16))
 # the FFT-conv mixer at olmo-1b's width (src/repro/configs/olmo_1b.py:
 # d_model 2048; fftconv_rank 16 is the ArchConfig default) on 4 x 8192
 # tokens: nf = 16384, factors (128, 128)
@@ -298,7 +301,8 @@ VARIANT_N = 16384
 VARIANT_SIZES = (4096, 8192, 16384)
 VARIANT_ORDER = ("for_loop", "future_sync", "future_opt", "future_naive",
                  "future_agas", "strided")
-CHUNKED = ("future_naive", "future_opt")    # host-bound: 3 timed runs
+# host-bound (0.6-4.9 s a run on the card's host): one timed run each
+CHUNKED = ("future_naive", "future_opt")
 TASK_SIZES, TASK_SWEEP_N = (1, 2, 4, 8, 16, 64, 256), 4096
 # the distributed layer at world size 1: slab r2c 16384^2 (rfftn's shape)
 # over each exchange setting and the transposed layout, pencil c2c 512^3
@@ -373,11 +377,11 @@ LM_LAYER_LAUNCHES = {"four_step_fft": 2, "batched_transpose": 2,
 # holds the port's drift to the reference's), so the drift is printed,
 # not held. The sLSTM layers' device ops are traced over SLSTM_TRACED
 # tokens
-# xlstm-1.3b runs 24 of its 48 layers, three of its six (7 mLSTM + 1
+# xlstm-1.3b runs 16 of its 48 layers, two of its six (7 mLSTM + 1
 # sLSTM) repeats: its prefill is a per-token sLSTM loop bound by the host
-# (6.4 s a request at full depth), and the whole script passed 1100 s of
-# its 1200 at full depth.
-KIND_MODELS = (("xlstm-1.3b", 24), ("zamba2-7b", None),
+# (6.4 s a request at full depth); the whole script passed 1100 s of its
+# 1200 at full depth, and 1085 s at 24 layers on a slower host.
+KIND_MODELS = (("xlstm-1.3b", 16), ("zamba2-7b", None),
                ("qwen2-vl-7b", None), ("musicgen-large", None),
                ("phi3.5-moe-42b-a6.6b", 8))
 KIND_PROMPT, KIND_REQUESTS, KIND_NEW = 2048, 4, 16
@@ -926,17 +930,30 @@ def phase_conv_kernels(gen, factors, errs) -> dict:
                 check(err <= 2e-4 * scale, f"fftconv_fused {f} batch {batch} "
                       f"block_rows {block_rows}: err {err} > 2e-4 * {scale}")
                 worst = max(worst, err / scale)
+    # rows one float past 16-byte alignment take the 4-byte copies
+    buf, h = randn((7 * nf + 1,), gen), decaying_filter(nf, gen)
+    err, scale = fused_error(buf[1:].view(7, nf), h, factors)
+    check(err <= 2e-4 * scale, f"fftconv_fused unaligned (7, {nf}): err "
+          f"{err} > 2e-4 * {scale}")
+    worst = max(worst, err / scale)
+    rows, f = FUSED_SHORT
+    x, h = randn((rows, f[0] * f[1]), gen), decaying_filter(f[0] * f[1], gen)
+    err, scale = fused_error(x, h, f)
+    check(err <= 2e-4 * scale, f"fftconv_fused ({rows}, {f[0] * f[1]}): "
+          f"err {err} > 2e-4 * {scale}")
+    worst = max(worst, err / scale)
     x, h = randn((CONV_ROWS, nf), gen), decaying_filter(nf, gen)
     fused_path, scale = fused_error(x, h, factors)
     check(fused_path <= 2e-4 * scale, f"fftconv_fused ({CONV_ROWS}, {nf}): "
           f"err {fused_path} > 2e-4 * {scale}")
-    del x, h
+    del x, h, buf
     print(f"checked complex_multiply on {cmul_cases} shape x block cases, "
           f"an unaligned case (err {unaligned:.3e}) and ({MIXER_B}, "
           f"{MIXER_D}, {nf}) x ({MIXER_D}, {nf}) (err {cmul_path:.3e}, "
           f"limit 1e-5); fftconv_fused on {FUSED_FACTORS} x batch "
-          f"{FUSED_BATCHES} x block_rows {FUSED_BLOCK_ROWS} (worst "
-          f"err/scale {worst:.3e}, limit 2e-4) and "
+          f"{FUSED_BATCHES} x block_rows {FUSED_BLOCK_ROWS}, unaligned "
+          f"rows and {FUSED_SHORT} (worst err/scale {worst:.3e}, limit "
+          f"2e-4) and "
           f"({CONV_ROWS}, {nf}) {factors} (err {fused_path:.3e}, scale "
           f"{scale:.3e})")
     return {"complex_multiply": cmul_path, "fftconv_fused": fused_path,
@@ -1191,6 +1208,29 @@ def phase_fused_path(gen, mixer, factors) -> dict:
     return launches
 
 
+def fused_kernel_call(x, h, factors):
+    """A call of the fused kernel's library alone on x (rows, n) with h's
+    permuted spectrum made once: the kernel's time without the filter
+    spectrum's four-step launch, which ``fftconv_fused`` adds. Not
+    counted."""
+    from repro_torch.kernels.dft_matmul import ops as dft_ops
+    from repro_torch.kernels.fftconv import binding
+    from repro_torch.kernels.fftconv.ops import filter_spectrum_permuted
+    y = torch.empty_like(x)
+    spec = dft_ops.interleaved(filter_spectrum_permuted(h, factors))
+    r1, tw, r2 = dft_ops.tables(*factors, x.device)
+    lib = binding.lib()
+
+    def call():
+        rc = lib.fftconv_fused(x.data_ptr(), spec.data_ptr(), r1.data_ptr(),
+                               tw.data_ptr(), r2.data_ptr(), y.data_ptr(),
+                               x.shape[0], factors[0], factors[1], 8,
+                               torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"fftconv_fused library call: code {rc}")
+        return y
+    return call
+
+
 def phase_conv_times(label, planners, mixer, x, factors, gen) -> dict:
     from repro_torch.calibrate import time_ms
     from repro_torch.core.fftconv import fft_conv
@@ -1239,28 +1279,35 @@ def phase_conv_times(label, planners, mixer, x, factors, gen) -> dict:
                                    bound_ms=bound_ms, bound_by=by)
     del a, b, ac, bc
 
-    xs, h = randn((CONV_ROWS, nf), gen), decaying_filter(nf, gen)
-    kt = time_ms(lambda: fftconv_fused(xs, h, factors))
-    plain = time_ms(lambda: fftconv_fused_plain(
-        xs, filter_spectrum_plain(h, factors), factors))
-    comp = time_ms(lambda: torch.fft.irfft(
-        torch.fft.rfft(xs) * torch.fft.rfft(h), n=nf))
-    # the function: a length-nf FFT and inverse per row and the product,
-    # one f32 read and write per point
-    fft_flops = (2 * 5.0 * nf * math.log2(nf) + 6.0 * nf) * CONV_ROWS
-    nbytes = 8.0 * CONV_ROWS * nf
-    bound_ms, by = bound(fft_flops, nbytes)
-    print(f"time fftconv_fused ({CONV_ROWS}, {nf}) {factors}: kernel "
-          f"{kt:.3f} ms (with the filter spectrum's one-row four-step "
-          f"launch), plain {plain:.3f} ms, torch.fft composition (rfft, "
-          f"multiply, irfft; no single library call) {comp:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({by}, {bound_ms / kt:.1%} of it); "
-          f"{nbytes / (kt * 1e-3) / 1e12:.2f} TB/s, "
-          f"{fft_flops / (kt * 1e-3) / 1e12:.2f} TFLOP/s of the FFT's "
-          f"operations [{label}]")
-    out["fftconv_fused"] = dict(ms=kt, plain_ms=plain, library_ms=None,
-                                bound_ms=bound_ms, bound_by=by)
-    del xs, h
+    for rows, f in ((CONV_ROWS, factors), FUSED_SHORT):
+        n = f[0] * f[1]
+        xs, h = randn((rows, n), gen), decaying_filter(n, gen)
+        alone = fused_kernel_call(xs, h, f)
+        kt = time_ms(alone)
+        kf = time_ms(lambda: fftconv_fused(xs, h, f))
+        plain = time_ms(lambda: fftconv_fused_plain(
+            xs, filter_spectrum_plain(h, f), f))
+        comp = time_ms(lambda: torch.fft.irfft(
+            torch.fft.rfft(xs) * torch.fft.rfft(h), n=n))
+        # the function: a length-n FFT and inverse per row and the product,
+        # one f32 read and write per point
+        fft_flops = (2 * 5.0 * n * math.log2(n) + 6.0 * n) * rows
+        nbytes = 8.0 * rows * n
+        bound_ms, by = bound(fft_flops, nbytes)
+        print(f"time fftconv_fused ({rows}, {n}) {f}: kernel {kt:.3f} ms "
+              f"({bound_ms / kt:.1%} of the bound; {kf:.3f} ms with the "
+              f"filter spectrum's one-row four-step launch), plain "
+              f"{plain:.3f} ms, torch.fft composition (rfft, multiply, "
+              f"irfft; no single library call) {comp:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({by}); "
+              f"{nbytes / (kt * 1e-3) / 1e12:.2f} TB/s, "
+              f"{fft_flops / (kt * 1e-3) / 1e12:.2f} TFLOP/s of the FFT's "
+              f"operations [{label}]")
+        if rows == CONV_ROWS:       # the path's shape: the kernel's line
+            out["fftconv_fused"] = dict(ms=kt, plain_ms=plain,
+                                        library_ms=None, bound_ms=bound_ms,
+                                        bound_by=by)
+        del xs, h, alone
     return out
 
 
@@ -1362,7 +1409,7 @@ def phase_variant_times(label, planner, gen) -> None:
     for n in VARIANT_SIZES:
         x = randn((n, n), gen)
         for name in VARIANT_ORDER:
-            reps = 3 if name in CHUNKED else 10
+            reps = 1 if name in CHUNKED else 10
             ms, wall = time_variant(
                 lambda: variants.run_variant(name, x, planner), reps)
             fig1[name, n] = ms
@@ -1374,7 +1421,7 @@ def phase_variant_times(label, planner, gen) -> None:
     x = randn((n, n), gen)
     for ts in TASK_SIZES:
         ms, wall = time_variant(lambda: variants.run_variant(
-            "future_naive", x, planner, task_size=ts), 3)
+            "future_naive", x, planner, task_size=ts), 1)
         tasks = n // variants.shrink_task_size(n, ts)
         print(f"time future_naive {n}^2 task_size {ts} ({tasks} tasks): "
               f"{ms:.3f} ms (wall {wall:.3f} ms), "

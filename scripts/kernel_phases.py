@@ -20,10 +20,17 @@ last run, for a unit early, in the middle and late in the launch.
   the store (or the permuted copy-out). For a batch of short rows: starting
   the next batch's copies and waiting on this one's, DFT_n1, DFT_n2 but
   its last pass, the last pass with the store.
-- The fused convolution (8192, 16384) has thread 0 of one chosen CTA
-  record the clock when the kernel starts and after the barrier that ends
-  every radix pass (phase 0 runs to the end of its first pass, the tables
-  and the loads from device memory).
+- The fused convolution (at (8192, 16384), (128, 128) and (262144, 512),
+  (32, 16)) marks its stages with ``FFTCONV_MARK``: the unit is a pair of
+  rows (BIG) or a batch of pairs. A BIG pair's stages are, per group of
+  columns, the wait on the tile ring, the forward DFT_n1's first pass from
+  the ring and the barrier after it (which also starts the next copies),
+  its later passes; then the barrier closing DFT_n1, the middle (DFT_n2,
+  H, inverse DFT_n2 and the barrier after them), the inverse DFT_n1 but
+  its last pass, and the last pass with the store. A batch: starting the
+  next batch's copies and waiting on this one's, the forward DFT_n1, the
+  middle, the inverse DFT_n1 but its last pass, the last pass with the
+  store.
 """
 
 from __future__ import annotations
@@ -48,22 +55,17 @@ OUT = ROOT / "build" / "kernel_phases"
 RUNS = 3
 GLOBALS = ("__device__ long long g_clock[64];\n__device__ int g_marks;\n"
            "__device__ long long g_unit;\n")
-# fftconv.cu: one CTA's passes (the header's transform, after its barrier)
-MARK = ("do { if (threadIdx.x == 0 && blockIdx.x == fft_radix::g_unit "
-        "&& fft_radix::g_marks < 64) fft_radix::g_clock[fft_radix::g_marks++]"
-        " = clock64(); } while (0)")
-# dft_matmul.cu: one row or batch, whichever CTA takes it
-FOUR_STEP_MARK = ("#define FOUR_STEP_MARK(unit) do { if (threadIdx.x == 0 && "
-                  "(long long)(unit) == g_unit && g_marks < 64) "
-                  "g_clock[g_marks++] = clock64(); } while (0)\n")
+# one row, pair or batch, whichever CTA takes it
+MARK_BODY = ("(unit) do { if (threadIdx.x == 0 && (long long)(unit) == g_unit "
+             "&& g_marks < 64) g_clock[g_marks++] = clock64(); } while (0)\n")
 READ = """
 extern "C" void read_marks(long long* out, long long next_unit) {
-  cudaMemcpyFromSymbol(out, NS g_clock, sizeof(long long) * 64);
+  cudaMemcpyFromSymbol(out, g_clock, sizeof(long long) * 64);
   const long long none[64] = {};
-  cudaMemcpyToSymbol(NS g_clock, none, sizeof(none));
+  cudaMemcpyToSymbol(g_clock, none, sizeof(none));
   const int zero = 0;
-  cudaMemcpyToSymbol(NS g_marks, &zero, sizeof(int));
-  cudaMemcpyToSymbol(NS g_unit, &next_unit, sizeof(long long));
+  cudaMemcpyToSymbol(g_marks, &zero, sizeof(int));
+  cudaMemcpyToSymbol(g_unit, &next_unit, sizeof(long long));
 }
 """
 
@@ -78,40 +80,18 @@ def build() -> dict:
     """Instrumented copies of the two kernels, compiled; name -> CDLL."""
     shutil.rmtree(OUT, ignore_errors=True)
     kernels = _build.KERNELS_DIR
-    # the four-step: its own marks, the headers as they are
-    shutil.copytree(kernels / "common", OUT / "four" / "common")
-    (OUT / "four" / "dft_matmul").mkdir(parents=True)
-    src = (kernels / "dft_matmul" / "dft_matmul.cu").read_text()
-    src = _replace_once(src, "#ifndef FOUR_STEP_MARK",
-                        GLOBALS + FOUR_STEP_MARK + "#ifndef FOUR_STEP_MARK")
-    four = OUT / "four" / "dft_matmul" / "dft_matmul.cu"
-    four.write_text(src + READ.replace("NS ", ""))
-    # the fused convolution: a mark after every pass of transform()
-    (OUT / "conv" / "common").mkdir(parents=True)
-    header = (kernels / "common" / "fft_radix.cuh").read_text()
-    header = _replace_once(
-        header, "namespace fft_radix {",
-        "namespace fft_radix {\n" + GLOBALS
-        + f"#define FFT_PHASE_MARK() {MARK}\n")
-    header = _replace_once(
-        header, "        [&](int r, int l, int p, float2 v) { store(i, r, l, p, v); });\n"
-        "    __syncthreads();\n",
-        "        [&](int r, int l, int p, float2 v) { store(i, r, l, p, v); });\n"
-        "    __syncthreads();\n    FFT_PHASE_MARK();\n")
-    (OUT / "conv" / "common" / "fft_radix.cuh").write_text(header)
-    (OUT / "conv" / "fftconv").mkdir()
-    src = (kernels / "fftconv" / "fftconv.cu").read_text()
-    src = _replace_once(src, "  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;\n",
-                        "  FFT_PHASE_MARK();\n"
-                        "  const int n1 = a1.m, n2 = a2.m, n = n1 * n2;\n")
-    # the merged pass ends outside transform()
-    src = _replace_once(src, "    __syncthreads();\n  }\n  fft_radix::transform<BIG, true, true, false>(",
-                        "    __syncthreads();\n    FFT_PHASE_MARK();\n  }\n"
-                        "  fft_radix::transform<BIG, true, true, false>(")
-    conv = OUT / "conv" / "fftconv" / "fftconv.cu"
-    conv.write_text(src + READ.replace("NS ", "fft_radix::"))
     procs = {}
-    for name, path in (("dft_matmul", four), ("fftconv", conv)):
+    for name, hook in (("dft_matmul", "FOUR_STEP_MARK"),
+                       ("fftconv", "FFTCONV_MARK")):
+        # the kernel's own marks, the headers as they are
+        shutil.copytree(kernels / "common", OUT / name / "common")
+        (OUT / name / name).mkdir(parents=True)
+        src = (kernels / name / f"{name}.cu").read_text()
+        src = _replace_once(src, f"#ifndef {hook}",
+                            GLOBALS + f"#define {hook}" + MARK_BODY
+                            + f"#ifndef {hook}")
+        path = OUT / name / name / f"{name}.cu"
+        path.write_text(src + READ)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
              str(path)],
@@ -154,6 +134,18 @@ def four_step_stages(n2: int, big: bool) -> list:
     return names + ["barrier", "DFT_n2 but last pass", "last pass + store"]
 
 
+def fftconv_stages(n2: int, big: bool) -> list:
+    """The names of the fused kernel's stages of one pair or batch."""
+    tail = ["middle", "inverse DFT_n1 but last pass", "last pass + store"]
+    if not big:
+        return ["start next + wait", "DFT_n1"] + tail
+    names = []
+    for g in range((n2 + 63) // 64):
+        names += [f"wait ring g{g}", f"DFT_n1 pass 0 g{g} + barrier",
+                  f"DFT_n1 later passes g{g}"]
+    return names + ["barrier"] + tail
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
@@ -192,17 +184,25 @@ def main() -> int:
     conv.fftconv_fused.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     conv.fftconv_fused.restype = ctypes.c_int
-    x = torch.randn((8192, 16384), device="cuda", generator=gen)
-    y = torch.empty_like(x)
-    h = torch.randn(16384, device="cuda", generator=gen)
-    spec = dft_ops.interleaved(conv_ops.filter_spectrum_permuted(h, (128, 128)))
-    r1, tw, r2 = dft_ops.tables(128, 128, x.device)
-    for block in (0, 2048, 4094):
-        cycles = phases(conv, block, lambda: conv.fftconv_fused(
-            ptr(x), ptr(spec), ptr(r1), ptr(tw), ptr(r2), ptr(y), 8192, 128,
-            128, 8, stream()))
-        print(f"fftconv_fused (8192, 16384) (128, 128) CTA {block}: cycles per "
-              f"phase {cycles}, total {sum(cycles)}")
+    # rows a unit: a pair (BIG), or a batch of kPoints / n pairs
+    for shape, f, rows_per_unit in (((8192, 16384), (128, 128), 2),
+                                    ((262144, 512), (32, 16), 32)):
+        x = torch.randn(shape, device="cuda", generator=gen)
+        y = torch.empty_like(x)
+        h = torch.randn(shape[1], device="cuda", generator=gen)
+        spec = dft_ops.interleaved(conv_ops.filter_spectrum_permuted(h, f))
+        r1, tw, r2 = dft_ops.tables(*f, x.device)
+        units = shape[0] // rows_per_unit
+        names = fftconv_stages(f[1], rows_per_unit == 2)
+        for unit in (0, units // 2, units - 2):
+            cycles = phases(conv, unit, lambda: conv.fftconv_fused(
+                ptr(x), ptr(spec), ptr(r1), ptr(tw), ptr(r2), ptr(y),
+                shape[0], f[0], f[1], 8, stream()))
+            named = ", ".join(f"{k} {c}" for k, c in zip(names, cycles))
+            print(f"fftconv_fused {shape} {f} "
+                  f"{'pair' if rows_per_unit == 2 else 'batch'} {unit}: "
+                  f"{named}; total {sum(cycles)}")
+        del x, y
     return 0
 
 

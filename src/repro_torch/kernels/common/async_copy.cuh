@@ -1,6 +1,7 @@
 // Hopper's asynchronous copies from device memory into shared memory, for
 // the port's kernels that stage their next input while they compute (the
-// four-step kernel, dft_matmul.cu).
+// four-step kernel, dft_matmul.cu, and the fused convolution, fftconv.cu;
+// persistent.cuh holds what they share).
 //
 // Each is a thin wrapper of its PTX (sm_90):
 // - the Tensor Memory Accelerator (TMA): one thread asks for a whole box of

@@ -377,8 +377,8 @@ __device__ __forceinline__ void butterfly<7, true>(float2 (&v)[7]) {
 }
 
 // The radices a plan can end with that have a butterfly in registers (16
-// comes first in a plan, and a factor of 16 alone never fills a row of
-// more than 8192 points, where radix 16 is allowed).
+// comes first in a plan, so it ends one only as its one pass, which the
+// fused kernel's middle runs in registers without this merge).
 __host__ __device__ inline bool has_butterfly(int radix) {
   return radix <= 5 || radix == 7 || radix == 8;
 }

@@ -39,7 +39,9 @@
 // (the grid is at most SMs x CTAs an SM), walk rows or batches
 // blockIdx.x, +gridDim.x, ..., load the tables into shared memory once, and
 // stage the next input with the Tensor Memory Accelerator
-// (common/async_copy.cuh) while the current one computes.
+// (common/async_copy.cuh) while the current one computes. The tables, the
+// ring, the staging and the launch are common/persistent.cuh's, shared
+// with the fused convolution (fftconv.cu).
 // - BIG rows (more than kPoints points; the rfftn and fftn column passes):
 //   two rows cannot share the SM, so the next input arrives in column
 //   tiles of the (n1, n2) view, the first DFT_n1 pass's only input: a ring
@@ -81,6 +83,7 @@
 
 #include "../common/async_copy.cuh"
 #include "../common/fft_radix.cuh"
+#include "../common/persistent.cuh"
 
 // scripts/kernel_phases.py defines this to record the SM clock of one row
 // (BIG) or batch at the end of each stage
@@ -91,86 +94,18 @@
 namespace {
 
 namespace ac = async_copy;
+namespace ps = persistent;
 using fft_radix::Axis;
 using fft_radix::Smem;
-
-// One CTA an SM, with 128 registers a thread, enough for radix-16
-// butterflies. Rows of more than kPoints points (BIG) go one at a time;
-// shorter rows in batches of about kPoints points. (Batches of half that,
-// two CTAs an SM with 64 registers and radices up to 8, took 1.18 ms at
-// (262144, 512) against 0.99: a pass more and twice the barriers.)
-constexpr int kThreads = 512;
-constexpr int kPoints = 8192;
-// BIG: the ring holds kRing tiles of kTileCols columns (both planes); a
-// group is the columns of one full ring
-constexpr int kTileCols = 32;
-constexpr int kRing = 2;
-constexpr int kGroupCols = kRing * kTileCols;
-constexpr int kBarBytes = 16;    // the mbarriers, first in shared memory
-// BIG: room for them and the ring's alignment to 128 bytes
-constexpr int kHeadBytes = 256;
-
-// The tables a CTA keeps in shared memory, after its rows.
-struct Tables {
-  float2* w1;             // w_n1^i, i < n1
-  float2* w2;             // w_n2^i, i < n2
-  float2* wn;             // w_n^i, i < n2 (row 1 of T)
-  unsigned char* rev2;    // a2.rev, a2.pos
-  unsigned char* pos2;
-
-  __host__ __device__ static long long bytes(int n1, int n2) {
-    return (n1 + 2LL * n2) * (long long)sizeof(float2) + 2LL * n2;
-  }
-  __device__ Tables(void* at, int n1, int n2) {
-    w1 = static_cast<float2*>(at);
-    w2 = w1 + n1;
-    wn = w2 + n2;
-    rev2 = reinterpret_cast<unsigned char*>(wn + n2);
-    pos2 = rev2 + n2;
-  }
-  // r1 (n1), r2 (n2): roots of each factor; tw (n1, n2): T. Every thread
-  // a share; a barrier before use.
-  __device__ void fill(const float2* r1, const float2* tw, const float2* r2,
-                       const Axis& a1, const Axis& a2) const {
-    const int n1 = a1.m, n2 = a2.m;
-    for (int i = threadIdx.x; i < n1; i += blockDim.x) w1[i] = r1[i];
-    for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-      w2[i] = r2[i];
-      wn[i] = n1 > 1 ? tw[n2 + i] : make_float2(1.f, 0.f);
-      rev2[i] = a2.rev[i];
-      pos2[i] = a2.pos[i];
-    }
-  }
-  // T[k1, c] = w_n^e, e = k1*c < n, as w_n1^(e / n2) * w_n^(e % n2)
-  __device__ __forceinline__ float2 twiddle(int k1, int c, int n2,
-                                            const fft_radix::Div& by_n2) const {
-    const int e = k1 * c, q = by_n2(e);
-    return fft_radix::cmul(w1[q], wn[e - q * n2]);
-  }
-};
-
-// Pass i (in the order the passes run) of the DIT transform along axis a,
-// over `lines` lines of one row, consecutive threads on consecutive lines:
-// load(line, pos), store(line, pos, value). No barrier.
-template <bool KARATSUBA, class Load, class Store>
-__device__ __forceinline__ void dit_pass(const Axis& a, int i, int lines,
-                                         const float2* roots, Load load,
-                                         Store store) {
-  const int k = a.passes - 1 - i;    // its radix
-  int L = 1;                         // its block length
-  for (int u = k; u < a.passes; ++u) L *= a.radix[u];
-  fft_radix::any_pass<true, true, false, KARATSUBA>(
-      a.radix[k], a.m, L, lines, 1, true, roots,
-      [&](int, int l, int p) { return load(l, p); },
-      [&](int, int l, int p, float2 v) { store(l, p, v); });
-}
+using ps::kGroupCols;
+using ps::kPoints;
 
 // x/y (rows, n1*n2) as two planes; r1, tw, r2 as Tables::fill takes them.
 // `tma`: map_r and map_i are tensor maps of x's planes as (rows*n1, n2)
 // matrices in boxes of n1 x kTileCols; otherwise the input is not 16-byte
 // aligned and every thread copies floats.
 template <bool KARATSUBA>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(ps::kThreads, 1)
 four_step_big(const __grid_constant__ ac::TileMap map_r,
               const __grid_constant__ ac::TileMap map_i,
               const float* __restrict__ xr, const float* __restrict__ xi,
@@ -180,58 +115,21 @@ four_step_big(const __grid_constant__ ac::TileMap map_r,
               bool tma, Axis a1, Axis a2) {
   const int n1 = a1.m, n2 = a2.m, n = n1 * n2;
   const int groups = (n2 + kGroupCols - 1) / kGroupCols;
-  const int plane = n1 * kTileCols;        // floats of a plane of a tile
   const Smem sm(n2);
-  unsigned char* base =
-      reinterpret_cast<unsigned char*>(fft_radix::dynamic_smem());
-  ac::Bar* full = reinterpret_cast<ac::Bar*>(base);     // one a tile
-  // ring[(tile * 2 + plane) * plane + j * kTileCols + column in the tile]
-  float* ring = reinterpret_cast<float*>(ac::align128(base + kBarBytes));
-  float2* buf = reinterpret_cast<float2*>(ring + kRing * 2 * plane);
-  const Tables tab(buf + Smem::size(n1, n2), n1, n2);
+  const ps::Ring ring(
+      reinterpret_cast<unsigned char*>(fft_radix::dynamic_smem()), n1, n2,
+      tma);
+  float2* buf = reinterpret_cast<float2*>(ring.end());
+  const ps::Tables tab(buf + Smem::size(n1, n2), n1, n2);
   tab.fill(r1, tw, r2, a1, a2);
-  if (threadIdx.x == 0) {
-    for (int t = 0; t < kRing; ++t)
-      ac::mbar_init(full + t, tma ? 1 : blockDim.x);
-    ac::mbar_init_fence();
-  }
+  ring.init();
   __syncthreads();
 
-  // Starts the copies of group g of `row`, its columns from g*kGroupCols,
-  // into the ring, tile t's bytes completing on full[t]: thread 0 has the
-  // TMA copy a box of each plane a tile; or every thread copies floats,
-  // consecutive threads along a view row, and counts one arrival.
+  // Starts the copies of group g of `row`: its planes are view rows
+  // row*n1.. of x's real and imaginary planes
   auto stage = [&](long long row, int g) {
-    const int cols = min(kGroupCols, n2 - g * kGroupCols);
-    if (tma) {
-      if (threadIdx.x != 0) return;
-      ac::fence_proxy_async();
-      for (int t = 0; t < kRing; ++t) {
-        const int c0 = g * kGroupCols + t * kTileCols;
-        if (t * kTileCols >= cols) {        // past the row: no copy
-          ac::mbar_arrive_expect_tx(full + t, 0);
-          continue;
-        }
-        ac::mbar_arrive_expect_tx(full + t, 2u * plane * sizeof(float));
-        ac::tile_load(ring + t * 2 * plane, &map_r, c0, (int)(row * n1),
-                      full + t);
-        ac::tile_load(ring + (t * 2 + 1) * plane, &map_i, c0,
-                      (int)(row * n1), full + t);
-      }
-      return;
-    }
-    const long long off = row * n + g * kGroupCols;
-    for (int t = 0; t < kRing; ++t) {
-      const int per = max(0, min(kTileCols, cols - t * kTileCols));
-      for (int e = threadIdx.x; e < 2 * n1 * per; e += blockDim.x) {
-        const int line = e / per, c = e - line * per;
-        const int pl = line >= n1, j = line - pl * n1;   // plane, view row
-        ac::copy4(ring + (t * 2 + pl) * plane + j * kTileCols + c,
-                  (pl ? xi : xr) + off + (long long)j * n2 + t * kTileCols +
-                      c);
-      }
-      ac::mbar_arrive_copies(full + t);
-    }
+    ring.stage(&map_r, (int)(row * n1), xr + row * n, &map_i,
+               (int)(row * n1), xi + row * n, true, g);
   };
 
   const int last1 = a1.passes - 1, last2 = a2.passes - 1;
@@ -245,12 +143,7 @@ four_step_big(const __grid_constant__ ac::TileMap map_r,
     FOUR_STEP_MARK(row);
     for (int g = 0; g < groups; ++g) {
       const int c0 = g * kGroupCols, cols = min(kGroupCols, n2 - c0);
-      // the group's tiles: of a whole group, a warp's first pass reads one
-      if (cols == kGroupCols) {
-        ac::mbar_wait(full + (threadIdx.x / 32) % kRing, parity);
-      } else {
-        for (int t = 0; t < kRing; ++t) ac::mbar_wait(full + t, parity);
-      }
+      ring.wait(cols, parity);
       parity ^= 1;
       FOUR_STEP_MARK(row);
       // DFT_n1 down the group's columns (line c), DIT; T on the last
@@ -259,12 +152,11 @@ four_step_big(const __grid_constant__ ac::TileMap map_r,
         return fft_radix::twiddle_mul<KARATSUBA>(
             v, tab.twiddle(k1, c0 + c, n2, by_n2));
       };
-      dit_pass<KARATSUBA>(
+      ps::dit_pass<KARATSUBA>(
           a1, 0, cols, tab.w1,
           [&](int c, int p) {
-            const float* t = ring + (c / kTileCols) * 2 * plane +
-                             a1.rev[p] * kTileCols + c % kTileCols;
-            return make_float2(t[0], t[plane]);
+            const float* t = ring.at(c, a1.rev[p]);
+            return make_float2(t[0], t[ring.plane_floats]);
           },
           [&](int c, int k1, float2 v) {
             at(k1, c0 + c) = last1 == 0 ? twiddled(k1, c, v) : v;
@@ -276,7 +168,7 @@ four_step_big(const __grid_constant__ ac::TileMap map_r,
         stage(row + gridDim.x, 0);
       FOUR_STEP_MARK(row);
       for (int i = 1; i <= last1; ++i) {
-        dit_pass<KARATSUBA>(
+        ps::dit_pass<KARATSUBA>(
             a1, i, cols, tab.w1,
             [&](int c, int p) { return at(p, c0 + c); },
             [&](int c, int k1, float2 v) {
@@ -323,29 +215,24 @@ four_step_big(const __grid_constant__ ac::TileMap map_r,
   }
 }
 
-// floats of a plane of a short-row stage, a multiple of 16 bytes
-__host__ __device__ inline int stage_span(int batch, int n) {
-  return (batch * n + 3) & ~3;
-}
-
 // Short rows, `batch` rows a batch; the rest as four_step_big.
 template <bool KARATSUBA>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(ps::kThreads, 1)
 four_step_rows(const float* __restrict__ xr, const float* __restrict__ xi,
                const float2* __restrict__ r1, const float2* __restrict__ tw,
                const float2* __restrict__ r2, float* __restrict__ yr,
                float* __restrict__ yi, long long rows, int batch,
                bool permuted, bool bulk, Axis a1, Axis a2) {
   const int n1 = a1.m, n2 = a2.m, n = n1 * n2;
-  const int span = stage_span(batch, n);
+  const int span = ps::stage_span(batch * n);   // floats of a plane
   const Smem sm(n2);
   unsigned char* base =
       reinterpret_cast<unsigned char*>(fft_radix::dynamic_smem());
   ac::Bar* full = reinterpret_cast<ac::Bar*>(base);     // one a stage
   // stages[(stage * 2 + plane) * span + r * n + i]
-  float* stages = reinterpret_cast<float*>(base + kBarBytes);
+  float* stages = reinterpret_cast<float*>(base + ps::kBarBytes);
   float2* buf = reinterpret_cast<float2*>(stages + 4 * span);
-  const Tables tab(buf + Smem::size(batch * n1, n2), n1, n2);
+  const ps::Tables tab(buf + Smem::size(batch * n1, n2), n1, n2);
   tab.fill(r1, tw, r2, a1, a2);
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) ac::mbar_init(full + s, bulk ? 1 : blockDim.x);
@@ -354,28 +241,13 @@ four_step_rows(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
 
   const long long batches = (rows + batch - 1) / batch;
-  // Starts the copies of batch b into stage s, completing on full[s]: two
-  // bulk copies by thread 0, or 4-byte copies by every thread, each then
-  // counting an arrival.
+  // Starts the copies of batch b into stage s, completing on full[s]: the
+  // run of each plane
   auto fetch = [&](long long b, int s) {
     const long long row0 = b * batch;
     const int count = (int)min((long long)batch, rows - row0) * n;
-    float* dst = stages + s * 2 * span;
-    if (!bulk) {
-      for (int e = threadIdx.x; e < 2 * count; e += blockDim.x) {
-        const int pl = e >= count, i = e - pl * count;
-        ac::copy4(dst + pl * span + i, (pl ? xi : xr) + row0 * n + i);
-      }
-      ac::mbar_arrive_copies(full + s);
-      return;
-    }
-    if (threadIdx.x == 0) {
-      ac::fence_proxy_async();
-      ac::mbar_arrive_expect_tx(full + s, 2u * count * sizeof(float));
-      ac::bulk_load(dst, xr + row0 * n, count * sizeof(float), full + s);
-      ac::bulk_load(dst + span, xi + row0 * n, count * sizeof(float),
-                    full + s);
-    }
+    ps::stage_runs(stages + s * 2 * span, span, xr + row0 * n, xi + row0 * n,
+                   2, count, full + s, bulk);
   };
 
   const int last1 = a1.passes - 1, last2 = a2.passes - 1;
@@ -452,32 +324,10 @@ four_step_rows(const float* __restrict__ xr, const float* __restrict__ xi,
 
 // Shared memory of four_step_rows at `batch` rows a batch.
 long long rows_smem(int n1, int n2, int batch) {
-  return kBarBytes + 4LL * stage_span(batch, n1 * n2) * sizeof(float) +
+  return ps::kBarBytes +
+         4LL * ps::stage_span(batch * n1 * n2) * sizeof(float) +
          Smem::size(batch * n1, n2) * (long long)sizeof(float2) +
-         Tables::bytes(n1, n2);
-}
-
-// Launches `kernel` over `units` rows or batches: at most as many CTAs as
-// the card holds at once, each walking units blockIdx.x, +gridDim.x, ...
-template <class Kernel, class... Args>
-cudaError_t persistent(Kernel kernel, long long units, long long smem,
-                       cudaStream_t stream, Args... args) {
-  if (smem > fft_radix::kMaxSmem) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidValue;
-  const long long ctas =
-      units < (long long)sms * per_sm ? units : (long long)sms * per_sm;
-  kernel<<<(unsigned)ctas, kThreads, (size_t)smem, stream>>>(args...);
-  return cudaGetLastError();
+         ps::Tables::bytes(n1, n2);
 }
 
 template <bool KARATSUBA>
@@ -492,21 +342,21 @@ cudaError_t launch(const float* xr, const float* xi, const float2* r1,
   const Axis a1 = fft_radix::plan_axis(n1, true),
              a2 = fft_radix::plan_axis(n2, true);
   if (big) {
-    const long long smem = kHeadBytes +
-                           kRing * 2LL * n1 * kTileCols * sizeof(float) +
+    const long long smem = ps::kHeadBytes + ps::Ring::bytes(n1) +
                            Smem::size(n1, n2) * (long long)sizeof(float2) +
-                           Tables::bytes(n1, n2);
+                           ps::Tables::bytes(n1, n2);
     // TMA: 16-byte aligned planes and view rows, row coordinates in an int
     const bool tma = aligned && n2 % 4 == 0 && rows * n1 <= INT_MAX;
     ac::TileMap map_r{}, map_i{};
     if (tma) {
       cudaError_t err = ac::make_tile_map(&map_r, xr, n2, rows * n1,
-                                          kTileCols, n1);
+                                          ps::kTileCols, n1);
       if (err == cudaSuccess)
-        err = ac::make_tile_map(&map_i, xi, n2, rows * n1, kTileCols, n1);
+        err = ac::make_tile_map(&map_i, xi, n2, rows * n1, ps::kTileCols,
+                                n1);
       if (err != cudaSuccess) return err;
     }
-    return persistent(four_step_big<KARATSUBA>, rows, smem, stream, map_r,
+    return ps::launch(four_step_big<KARATSUBA>, rows, smem, stream, map_r,
                       map_i, xr, xi, r1, tw, r2, yr, yi, rows, permuted, tma,
                       a1, a2);
   }
@@ -514,7 +364,7 @@ cudaError_t launch(const float* xr, const float* xi, const float2* r1,
   if (rows < batch) batch = rows;
   while (batch > 1 && rows_smem(n1, n2, (int)batch) > fft_radix::kMaxSmem)
     --batch;
-  return persistent(four_step_rows<KARATSUBA>, (rows + batch - 1) / batch,
+  return ps::launch(four_step_rows<KARATSUBA>, (rows + batch - 1) / batch,
                     rows_smem(n1, n2, (int)batch), stream, xr, xi, r1, tw,
                     r2, yr, yi, rows, (int)batch, permuted,
                     aligned && n % 4 == 0, a1, a2);

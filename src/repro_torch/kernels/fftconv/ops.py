@@ -53,10 +53,10 @@ def fftconv_fused(x: torch.Tensor, h: torch.Tensor,
                   factors: Tuple[int, int], *,
                   block_rows: int = 8) -> torch.Tensor:
     """y[b] = circular_conv(x[b], h): x (B, nf) and h (nf,) real float32,
-    nf = n1*n2 with both factors in 1..128. ``block_rows`` asks for rows per
-    CTA; the kernel takes them in pairs (one complex row each), at most as
-    many as its threads (32 points each, 512 at most) and shared memory
-    hold. The result does not depend on it."""
+    nf = n1*n2 with both factors in 1..128. ``block_rows`` (at least 1) is
+    the reference's rows per grid step; the kernel's persistent CTAs size
+    their work by shared memory and do not read it, and the result does not
+    depend on it."""
     global LAUNCHES
     n1, n2 = _factors(factors)
     nf = n1 * n2

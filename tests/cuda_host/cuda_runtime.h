@@ -66,6 +66,7 @@ extern "C" long long host_cuda_bytes_copied(int kind) {
 inline void __syncthreads() { host_cuda::barrier->arrive_and_wait(); }
 inline void __syncwarp() { host_cuda::warp_barrier->arrive_and_wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }

@@ -159,7 +159,8 @@ def test_complex_multiply_raises_on_bad_input(cuda):
 
 @pytest.mark.parametrize("factors", [(8, 8), (16, 32), (64, 64), (128, 8),
                                      (8, 128), (128, 128), (5, 7), (128, 1),
-                                     (11, 13), (127, 1), (6, 10)])
+                                     (11, 13), (127, 1), (6, 10), (16, 128),
+                                     (96, 100), (127, 65)])
 @pytest.mark.parametrize("block_rows", [1, 4, 8])
 @pytest.mark.parametrize("batch", [6, 5])
 def test_fftconv_fused_kernel_matches_plain(cuda, factors, block_rows, batch):

@@ -1,13 +1,14 @@
 """The CUDA sources of the FFT kernels, compiled for the CPU and held
-against numpy.
+against numpy (and the fused kernel against the reference's).
 
 The CPU tests run where no CUDA compiler is installed, so the sources of
 ``dft_matmul.cu`` and ``fftconv.cu`` (with ``common/fft_radix.cuh``) are
 compiled with g++ against ``tests/cuda_host/cuda_runtime.h``, a host
 stand-in that runs one thread per CUDA thread with a real barrier, and
 called through the same C interface the wrappers call on the card. This checks the kernels' index arithmetic,
-radix plans, barriers and launch limits on every radix path; the card runs
-the same sources in tests/test_torch_gpu.py and chip_smoke.py.
+radix plans, barriers, copy paths and launch limits on every radix path;
+the card runs the same sources in tests/test_torch_gpu.py and
+chip_smoke.py.
 """
 
 import ctypes
@@ -16,10 +17,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.fftconv import fftconv_fused as jax_fftconv_fused
 from repro_torch.kernels import _build
 from repro_torch.kernels.dft_matmul import ops as dft_ops
 from repro_torch.kernels.fftconv.ref import filter_spectrum_plain
@@ -48,18 +51,21 @@ def lib(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernel sources for the CPU")
     out = tmp_path_factory.mktemp("kernels")
     (out / "common").mkdir()
-    header = (_build.KERNELS_DIR / "common" / "fft_radix.cuh").read_text()
-    assert "extern __shared__ float4 fft_radix_smem[];" in header
-    (out / "common" / "fft_radix.cuh").write_text(_host_source(header))
+    common = _build.KERNELS_DIR / "common"
+    headers = {p.name: p.read_text() for p in common.glob("*.cuh")}
+    assert "extern __shared__ float4 fft_radix_smem[];" in \
+        headers["fft_radix.cuh"]
+    assert "kernel<<<" in headers["persistent.cuh"]
     # the stand-in defines async_copy's functions in place of its PTX
-    copies = (_build.KERNELS_DIR / "common" / "async_copy.cuh").read_text()
     for name in ASYNC_COPY:
-        assert f" {name}(" in copies, name
-    (out / "common" / "async_copy.cuh").write_text("#pragma once\n")
+        assert f" {name}(" in headers["async_copy.cuh"], name
+    headers["async_copy.cuh"] = "#pragma once\n"
+    for name, text in headers.items():
+        (out / "common" / name).write_text(_host_source(text))
     procs = []
     for name in ("dft_matmul", "fftconv"):
         src = (_build.KERNELS_DIR / name / f"{name}.cu").read_text()
-        assert "kernel<<<" in src
+        assert '#include "../common/persistent.cuh"' in src
         (out / name).mkdir()
         (out / name / f"{name}.cpp").write_text(_host_source(src))
         procs.append(subprocess.Popen(
@@ -81,21 +87,26 @@ def lib(tmp_path_factory):
     so["fftconv"].fftconv_fused.argtypes = [ptr] * 6 + [i64] + [i32] * 3 \
         + [ptr]
     so["fftconv"].fftconv_fused.restype = i32
+    so["fftconv"].host_cuda_bytes_copied.argtypes = [i32]
+    so["fftconv"].host_cuda_bytes_copied.restype = ctypes.c_longlong
     return so
+
+
+def _placed(a, offset):
+    """The real array a as a float32 tensor that starts `offset` floats into
+    a 16-byte aligned buffer."""
+    buf = torch.empty(a.size + offset + 4, dtype=torch.float32)
+    skip = (-buf.data_ptr() // 4) % 4 + offset
+    t = buf[skip:skip + a.size].view(a.shape)
+    t.copy_(torch.from_numpy(a.astype(np.float32)))
+    assert t.data_ptr() % 16 == 4 * (offset % 4)
+    return t
 
 
 def _planes(x, offset):
     """x's real and imaginary planes as float32 tensors that start `offset`
     floats into a 16-byte aligned buffer."""
-    out = []
-    for part in (x.real, x.imag):
-        buf = torch.empty(x.size + offset + 4, dtype=torch.float32)
-        skip = (-buf.data_ptr() // 4) % 4 + offset
-        t = buf[skip:skip + x.size].view(x.shape)
-        t.copy_(torch.from_numpy(part.astype(np.float32)))
-        assert t.data_ptr() % 16 == 4 * (offset % 4)
-        out.append(t)
-    return out
+    return [_placed(part, offset) for part in (x.real, x.imag)]
 
 
 def _four_step(lib, x, factors, karatsuba=False, permuted=False, offset=0):
@@ -208,27 +219,107 @@ def test_four_step_source_refuses_bad_factors(lib):
     assert rc != 0
 
 
+def _conv_inputs(rows, n):
+    x = RNG.standard_normal((rows, n)).astype(np.float32)
+    h = (RNG.standard_normal(n) * np.exp(-np.arange(n) / 64.0)).astype(
+        np.float32)
+    return x, h
+
+
+def _fused(lib, x, h, factors, block_rows=8, offset=0):
+    """The stand-in's fused kernel on real rows x with filter h, x placed
+    `offset` floats past 16-byte alignment: (return code, y)."""
+    n1, n2 = factors
+    spec = dft_ops.interleaved(filter_spectrum_plain(torch.from_numpy(h),
+                                                     factors))
+    r1, tw, r2 = dft_ops.tables(n1, n2, torch.device("cpu"))
+    xt = _placed(x, offset)
+    y = torch.full(x.shape, np.nan, dtype=torch.float32)
+    rc = lib["fftconv"].fftconv_fused(
+        xt.data_ptr(), spec.data_ptr(), r1.data_ptr(), tw.data_ptr(),
+        r2.data_ptr(), y.data_ptr(), x.shape[0], n1, n2, block_rows, None)
+    return rc, y.numpy()
+
+
+def _conv_close(y, x, h):
+    ref = np.fft.ifft(np.fft.fft(x.astype(np.float64), axis=-1)
+                      * np.fft.fft(h.astype(np.float64))).real
+    # the reference's kernel tolerance (tests/test_kernels_fftconv.py)
+    assert np.abs(y - ref).max() <= 2e-4 * np.abs(ref).max()
+
+
+def _conv_copied(lib):
+    """Input bytes each copy path of the fused kernel's stand-in took since
+    the last call."""
+    return [lib["fftconv"].host_cuda_bytes_copied(k)
+            for k in (COPY4, BULK, TILE)]
+
+
 @pytest.mark.parametrize("factors", [(8, 8), (16, 32), (5, 7), (11, 13),
                                      (128, 1), (1, 127), (8, 16), (6, 10),
                                      (128, 128)])
 @pytest.mark.parametrize("batch", [5, 6])
 @pytest.mark.parametrize("block_rows", [1, 8])
 def test_fftconv_source_matches_numpy(lib, factors, batch, block_rows):
-    n1, n2 = factors
-    n = n1 * n2
-    x = RNG.standard_normal((batch, n)).astype(np.float32)
-    h = (RNG.standard_normal(n) * np.exp(-np.arange(n) / 64.0)).astype(
-        np.float32)
-    spec = dft_ops.interleaved(filter_spectrum_plain(torch.from_numpy(h),
-                                                     factors))
-    r1, tw, r2 = dft_ops.tables(n1, n2, torch.device("cpu"))
-    xt = torch.from_numpy(x)
-    y = torch.full_like(xt, np.nan)
-    rc = lib["fftconv"].fftconv_fused(
-        xt.data_ptr(), spec.data_ptr(), r1.data_ptr(), tw.data_ptr(),
-        r2.data_ptr(), y.data_ptr(), batch, n1, n2, block_rows, None)
+    x, h = _conv_inputs(batch, factors[0] * factors[1])
+    rc, y = _fused(lib, x, h, factors, block_rows)
     assert rc == 0
-    ref = np.fft.ifft(np.fft.fft(x.astype(np.float64), axis=-1)
-                      * np.fft.fft(h.astype(np.float64))).real
-    # the reference's kernel tolerance (tests/test_kernels_fftconv.py)
-    assert np.abs(y.numpy() - ref).max() <= 2e-4 * np.abs(ref).max()
+    _conv_close(y, x, h)
+
+
+# Persistent CTAs: the stand-in reports 2 SMs of one CTA, so BIG pairs of
+# rows (128 x 128) are walked two CTAs at a time, an odd batch leaving the
+# last pair's second row (and its TMA boxes) out; 151 rows of 512 are five
+# batches of 16 pairs (the last of 23 rows), three through one CTA's two
+# stages.
+@pytest.mark.parametrize("factors,rows,path", [((128, 128), 5, TILE),
+                                               ((128, 128), 6, TILE),
+                                               ((32, 16), 151, BULK)])
+def test_fftconv_source_persistent_ctas(lib, factors, rows, path):
+    x, h = _conv_inputs(rows, factors[0] * factors[1])
+    _conv_copied(lib)
+    rc, y = _fused(lib, x, h, factors)
+    assert rc == 0
+    # every input byte came in once, by the path the shape takes
+    want = [0, 0, 0]
+    want[path] = x.size * 4
+    assert _conv_copied(lib) == want
+    _conv_close(y, x, h)
+
+
+# The fused kernel's other copy paths: an input one float off 16-byte
+# alignment, n2 (BIG) or n (short rows) not a multiple of 4 take 4-byte
+# copies. (96, 100) takes TMA boxes with a last group of 36 columns (a box
+# of 32 columns, 4 of them in the row, and an empty tile) and a pair with
+# no second row; (127, 65) a generic radix-127 DFT_n1 of one pass that
+# reads the ring and multiplies by T, and a generic radix-13 middle in
+# shared-memory passes; (25, 40) an 8 x 5 middle in shared-memory passes;
+# (16, 64) a 16 x 4 middle in registers.
+@pytest.mark.parametrize("factors,rows,offset,path", [
+    ((128, 128), 3, 1, COPY4), ((32, 16), 37, 1, COPY4),
+    ((127, 65), 3, 0, COPY4), ((96, 100), 3, 0, TILE),
+    ((7, 3), 701, 0, COPY4), ((25, 40), 33, 0, BULK),
+    ((16, 64), 9, 0, BULK)])
+def test_fftconv_source_staging_paths(lib, factors, rows, offset, path):
+    x, h = _conv_inputs(rows, factors[0] * factors[1])
+    _conv_copied(lib)
+    rc, y = _fused(lib, x, h, factors, offset=offset)
+    assert rc == 0
+    _conv_close(y, x, h)
+    copied = _conv_copied(lib)
+    assert [c > 0 for c in copied] == [k == path for k in range(3)]
+    # a box covers whole tiles; the others copy each input byte once
+    assert copied[path] == x.size * 4 or (
+        path == TILE and copied[path] > x.size * 4)
+
+
+def test_fftconv_source_matches_reference_kernel(lib):
+    # the reference's fftconv_fused (Pallas, interpret mode) on the same
+    # rows and filter, batch 5: an odd batch, the last pair half empty
+    factors = (16, 32)
+    x, h = _conv_inputs(5, factors[0] * factors[1])
+    rc, y = _fused(lib, x, h, factors)
+    assert rc == 0
+    theirs = np.asarray(jax_fftconv_fused(jnp.asarray(x), jnp.asarray(h),
+                                          factors))
+    assert np.abs(y - theirs).max() <= 2e-4 * np.abs(theirs).max()
