@@ -443,7 +443,11 @@ TRAIN_LAYER_LAUNCHES = {"four_step_fft": 5, "batched_transpose": 6,
 # gradients over the data ranks (divide factor dp) instead of summing
 # them, which AdamW's clip makes invisible in the losses and the
 # parameters but not in grad_norm; and the sharded mixer's gradient over
-# (4,) (batch 1) within SHARDED_GRAD_TOL
+# (4,) (batch 1) within SHARDED_GRAD_TOL, then channel-parallel on the
+# (2, 2) mesh (the sequence over data, tp over model): every rank's
+# gradients of its blocks within SHARDED_GRAD_TOL of the unsharded
+# mixer's slices, its launches SHARDED_GRAD_LAUNCHES, and a control that
+# must miss (the filter gradient summed over model too)
 MESH_P1_TOL, SHARDED_GRAD_TOL, MESH_F32_TOL = 1e-6, 2e-4, 1e-4
 MESH_UPDATE_TOL = 5e-2
 SHARDED_GRAD_LAUNCHES = {"four_step_fft": 6, "batched_transpose": 28,
@@ -3634,8 +3638,9 @@ def gloo_mesh_train(rank, mesh4, planner, gen) -> list:
           f"mixer gradient: launches {launches}, expected "
           f"{SHARDED_GRAD_LAUNCHES}")
     got["x"] = gather_blocks(got["x"].contiguous(), mesh4, [(1, "fft")])
+    want = mixer_grads(mixer, x, w, False)
     if rank == 0:
-        errs = grad_errors(got, mixer_grads(mixer, x, w, False))
+        errs = grad_errors(got, want)
         check(max(errs.values()) <= SHARDED_GRAD_TOL, f"gloo sharded mixer "
               f"gradient: err/max {errs} > {SHARDED_GRAD_TOL}")
         lines.append(
@@ -3645,7 +3650,81 @@ def gloo_mesh_train(rank, mesh4, planner, gen) -> list:
                                          for k, v in errs.items())
             + f" (tol {SHARDED_GRAD_TOL}) against the unsharded mixer; rank"
             f" 0 launches {launches} (exact); {seconds:.3f} s first call")
-    return lines
+    del mixer, got
+    torch.cuda.empty_cache()
+    return lines + gloo_tp_mixer(rank, mesh, planner, x, w, want)
+
+
+def gloo_tp_mixer(rank, mesh, planner, x, w, want) -> list:
+    """Phase 18 (c), channel-parallel: the sequence-sharded mixer on the
+    (2, 2) ("data", "model") mesh, the sequence over data and ``tp`` over
+    model, on ``x`` and the cotangent ``w`` (batch 1): each rank's
+    gradients of its blocks (its positions of x, its columns of w_in and
+    rows of w_out, filt and skip whole) within SHARDED_GRAD_TOL of the
+    unsharded mixer's ``want`` sliced alike, its launches exactly
+    SHARDED_GRAD_LAUNCHES; the control (the filter gradient summed over
+    model too, whose ranks hold other channels) must miss. Returns rank
+    0's line."""
+    import torch.distributed as dist
+    from repro_torch.models import FFTConvMixer, blocks
+    from repro_torch.models.blocks import Runs, TensorParallel
+    t0 = time.perf_counter()
+    mixer = FFTConvMixer(MIXER_D, MIXER_RANK, planner=planner,
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(SEED),
+                         mesh=mesh, axis="data")
+    mixer.tp = TensorParallel(mesh.get_group("model"), mesh.size(1),
+                              mesh.get_local_rank("model"))
+    layouts = {"w_in": Runs.cut(1, MIXER_D, MIXER_D),
+               "w_out": Runs.cut(0, MIXER_D)}
+    for name, layout in layouts.items():        # as LM.place cuts them
+        param = getattr(mixer, name)
+        param.data = mixer.tp.block(param.data, layout).clone()
+    width = MIXER_S // mesh.size(0)
+    i = mesh.get_local_rank("data")
+    blk = slice(i * width, (i + 1) * width)
+    got, launches, seconds = counted(
+        lambda: mixer_grads(mixer, x[:, blk], w[:, blk], True))
+    check(launches == SHARDED_GRAD_LAUNCHES, f"gloo rank {rank} "
+          f"channel-parallel sharded mixer gradient: launches {launches}, "
+          f"expected {SHARDED_GRAD_LAUNCHES}")
+    mine = {k: v[:, blk] if k == "x" else
+            mixer.tp.block(v, layouts[k]) if k in layouts else v
+            for k, v in want.items()}
+    errs = grad_errors(got, mine)
+    check(max(errs.values()) <= SHARDED_GRAD_TOL, f"gloo rank {rank} "
+          f"channel-parallel sharded mixer gradient: err/max {errs} > "
+          f"{SHARDED_GRAD_TOL}")
+    del got
+    conv = blocks.fft_conv_seq_sharded
+    blocks.fft_conv_seq_sharded = \
+        lambda *a, channel_axis=None, **kw: conv(*a, **kw)
+    try:
+        control = grad_errors(
+            mixer_grads(mixer, x[:, blk], w[:, blk], True),
+            {"filt": want["filt"]})["filt"]
+    finally:
+        blocks.fft_conv_seq_sharded = conv
+    check(control > SHARDED_GRAD_TOL, f"gloo rank {rank} channel-parallel "
+          f"sharded mixer control (filter gradient summed over model) "
+          f"within the limit: {control}")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (max(errs.values()), control))
+    del mixer
+    torch.cuda.empty_cache()
+    if rank:
+        return []
+    return [f"gloo{GLOO_RANKS} channel-parallel sharded mixer gradient "
+            f"FFTConvMixer({MIXER_D}, {MIXER_RANK}) {tuple(x.shape)} on "
+            f"(2, 2) (data: the sequence, model: tp): rank 0 err/max "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + ", every rank's worst " + ", ".join(
+                f"{e:.3e}" for e, _ in every)
+            + f" (tol {SHARDED_GRAD_TOL}) against the unsharded mixer's "
+            "slices; control (filter gradient summed over model too) "
+            + ", ".join(f"{c:.3e}" for _, c in every)
+            + f"; rank 0 launches {launches} (exact); {seconds:.3f} s "
+            f"first call; {time.perf_counter() - t0:.1f} s"]
 
 
 def widest_block():

@@ -340,7 +340,8 @@ def _sharded_ifft(spec, z: Complex) -> torch.Tensor:
 def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
                          planner: Optional[Planner] = None,
                          comm: CommSpec = "collective",
-                         chunks: int = 4) -> torch.Tensor:
+                         chunks: int = 4,
+                         channel_axis: Optional[str] = None) -> torch.Tensor:
     """Causal FFT convolution with the sequence sharded over mesh axis
     ``axis``, on the mesh's device (every rank of the axis calls it).
 
@@ -358,7 +359,9 @@ def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
     rank's (B, L/p, D) block; ``k``'s is the whole (D, L) gradient, the same
     on every rank (each rank's block of positions all-gathered along
     ``axis``; on a mesh of more axes summed over the others, which hold
-    other rows of the batch)."""
+    other rows of the batch). ``channel_axis`` names a mesh axis whose
+    ranks hold other channels (tensor parallelism: each convolves its own
+    D of them), left out of that sum."""
     planner = planner or Planner(backends=("torch",))
     dev = mesh_device(mesh)
     u = torch.as_tensor(u).to(dev)
@@ -366,6 +369,11 @@ def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
     p, me = mesh_sizes(mesh)[axis], mesh.get_local_rank(axis)
     slen = lloc * p
     k = torch.as_tensor(k).to(dev)
+    if channel_axis is not None and (channel_axis == axis or channel_axis
+                                     not in mesh.mesh_dim_names):
+        raise ValueError(f"channel_axis {channel_axis!r}: not an axis of "
+                         f"the mesh {mesh.mesh_dim_names} other than "
+                         f"{axis!r}")
     if tuple(k.shape) != (d, slen):
         raise ValueError(f"filters {tuple(k.shape)}, a block {tuple(u.shape)}"
                          f" over {p} ranks needs ({d}, {slen})")
@@ -386,5 +394,5 @@ def fft_conv_seq_sharded(u: torch.Tensor, k: torch.Tensor, mesh, axis: str,
                 w=nf // p, slen=slen, planner=planner,
                 backend=get_backend(comm, chunks=chunks),
                 others=[mesh.get_group(a) for a in mesh.mesh_dim_names
-                        if a != axis])
+                        if a not in (axis, channel_axis)])
     return _ShardedConv.apply(u, k, spec)

@@ -103,6 +103,7 @@ class HardwareSpec:
 # (scripts/dist_times.py); at world size 1 single runs gave 38.87-144.40
 # us. The host's dispatch, not the wire, sets it. The port's pipelined
 # exchange overlaps no DFT pass.
+H100_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"   # what H100 was measured on
 H100 = HardwareSpec("h100", flops=51.33e12, hbm_bw=2.974e12, link_bw=450e9,
                     matmul_dim=8, vmem_bytes=50 * 2 ** 20,
                     collective_lat=5.240e-5, fft_share=0.6119,

@@ -794,7 +794,11 @@ class FFTConvMixer(nn.Module):
     axis) makes the mixer channel-parallel: ``w_in`` holds this rank's
     d/tp columns of v and of the gate, ``w_out`` its d/tp rows; each rank
     convolves and gates its channels (``filt`` and ``skip`` sliced to
-    them) and the partial outputs are summed over ``model``.
+    them) and the partial outputs are summed over ``model``. Both
+    branches take it; in the sharded one ``tp``'s group must be an axis
+    of ``mesh`` other than ``axis``, and the gradients of this rank's
+    blocks of ``w_in`` and ``w_out`` are summed over the mesh's other
+    axes only (``filt``'s and ``skip``'s are whole, as without ``tp``).
     """
 
     def __init__(self, d_model: int, rank: int = 16,
@@ -830,14 +834,34 @@ class FFTConvMixer(nn.Module):
             x = self.tp.copy(x)
         return (x @ self.w_in.to(x.dtype)).chunk(2, dim=-1)
 
+    def _tp_axis(self) -> Optional[str]:
+        """The axis of the mesh whose ranks hold other channels (``tp``'s
+        group), None without ``tp``."""
+        if self.tp is None:
+            return None
+        ranks = dist.get_process_group_ranks(self.tp.group)
+        for a in self.mesh.mesh_dim_names:
+            if dist.get_process_group_ranks(self.mesh.get_group(a)) == ranks:
+                if a == self.axis:
+                    break
+                return a
+        raise ValueError("channel-parallel, the sequence-sharded branch "
+                         "needs tp's group as an axis of the mesh other "
+                         f"than {self.axis!r}")
+
     def _whole_grad(self, t: torch.Tensor) -> torch.Tensor:
-        """``t``, its gradient summed over every axis of the mesh."""
+        """``t``, its gradient summed over every axis of the mesh but
+        ``tp``'s (whose ranks hold other channels)."""
+        tp_axis = self._tp_axis()
         return CopyToRanks.apply(t, [self.mesh.get_group(a)
-                                     for a in self.mesh.mesh_dim_names])
+                                     for a in self.mesh.mesh_dim_names
+                                     if a != tp_axis])
 
     def forward(self, x: torch.Tensor,
                 seq_axis_sharded: bool = False) -> torch.Tensor:
         if seq_axis_sharded and self.mesh is not None:
+            if self.tp is not None:
+                x = self.tp.copy(x)
             vg = x @ self._whole_grad(self.w_in).to(x.dtype)
             return self.mix(*vg.chunk(2, dim=-1), seq_axis_sharded=True)
         return self.mix(*self.project(x))
@@ -847,19 +871,17 @@ class FFTConvMixer(nn.Module):
         """The mixer's output from its projection (``project``)."""
         dt = v.dtype
         skip, w_out = self._channels(self.skip), self.w_out
+        filt = self._channels(self.filt).float()
         if seq_axis_sharded and self.mesh is not None:
-            if self.tp is not None:
-                raise NotImplementedError(
-                    "the sequence-sharded branch is not channel-parallel")
             skip, w_out = self._whole_grad(skip), self._whole_grad(w_out)
             s = v.shape[1] * mesh_sizes(self.mesh)[self.axis]
-            filt = materialize_filter(self.filt.float(), s)
-            y = fft_conv_seq_sharded(v, filt, self.mesh, self.axis,
-                                     planner=self.planner, comm=self.comm)
+            y = fft_conv_seq_sharded(v, materialize_filter(filt, s),
+                                     self.mesh, self.axis,
+                                     planner=self.planner, comm=self.comm,
+                                     channel_axis=self._tp_axis())
         else:
-            filt = materialize_filter(self._channels(self.filt).float(),
-                                      v.shape[1])
-            y = fft_conv(v, filt, planner=self.planner, device=v.device)
+            y = fft_conv(v, materialize_filter(filt, v.shape[1]),
+                         planner=self.planner, device=v.device)
         y = y + v * skip.to(dt)
         y = y * F.silu(gate)
         y = y @ w_out.to(dt)

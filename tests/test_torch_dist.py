@@ -184,6 +184,10 @@ PSUMS = ("collective", "pipelined:2", "agas", "measure", "auto")
 # the FFT-conv mixer's sharded branch: (2, 64, 8), rank-4 filters
 MIXER = dict(b=2, length=64, d=8, rank=4)
 MIXERS = ("m2", "m4")
+# the sharded branch channel-parallel, with MIXER's sizes: the sequence
+# over the mesh's first axis, tp over its second
+TP_MIXERS = ("m22",)
+TP_PARAMS = ("x", "w_in", "filt", "skip", "w_out")
 
 # gradients of the sharded convolution (CONV's inputs) and of the mixer's
 # sharded branch (MIXER's), on 2 and 4 ranks
@@ -365,6 +369,13 @@ def _ref_extras(out, planner):
             out["mixer/" + name] = np.asarray(jax.jit(
                 lambda a: fftconv_fwd(params, None, a,
                                       seq_axis_sharded=True))(x))
+    for name in TP_MIXERS:
+        mm = _jax_mesh(name)
+        seq, model = MESHES[name][1]
+        with sharding_rules(mm, {"sp": seq, "tp": model}):
+            out["mixer_tp/" + name] = np.asarray(jax.jit(
+                lambda a: fftconv_fwd(params, None, a,
+                                      seq_axis_sharded=True))(x))
 
     u, k = conv_inputs()
     w = grad_weights(u.shape, "conv")
@@ -519,6 +530,28 @@ def _gathered(t, mesh, axes):
     return _pair(pair) if isinstance(t, (tuple, list)) else pair[0].numpy()
 
 
+def _channel_parallel_mixer(params, mesh, names):
+    """The mixer of ``params`` with the sequence sharded over ``names[0]``
+    and the channels over ``names[1]`` (``tp``): this rank's blocks of
+    ``w_in`` (its v and gate columns) and ``w_out`` (its rows), cut as
+    ``LM.place`` cuts them."""
+    from repro_torch.convert import fftconv_mixer_from_reference
+    from repro_torch.core import comm
+    from repro_torch.models.blocks import Runs, TensorParallel
+    seq, model = names
+    mixer = fftconv_mixer_from_reference(params, device="cpu", mesh=mesh,
+                                         axis=seq)
+    mixer.tp = TensorParallel(mesh.get_group(model),
+                              comm.mesh_sizes(mesh)[model],
+                              mesh.get_local_rank(model))
+    d = MIXER["d"]
+    for name, layout in (("w_in", Runs.cut(1, d, d)),
+                         ("w_out", Runs.cut(0, d))):
+        param = getattr(mixer, name)
+        param.data = mixer.tp.block(param.data, layout).clone()
+    return mixer
+
+
 def _port_shim(case, mesh, planner, rank):
     """One shim case on this rank's block: (gathered raw forward, gathered
     round trip)."""
@@ -664,6 +697,23 @@ def _port_extras(rank, meshes, hw, out, meta):
             out["mixer/" + name] = _gathered(y, mesh, [(1, axis)])
             out["mixer/" + name + "/local"] = mixer(
                 torch.from_numpy(x)).numpy()
+    for name in TP_MIXERS:
+        mesh = meshes[name]
+        if mesh is None:                    # this rank is not in the mesh
+            continue
+        seq, model = MESHES[name][1]
+        w = x.shape[1] // comm.mesh_sizes(mesh)[seq]
+        me = mesh.get_local_rank(seq)
+        mixer = _channel_parallel_mixer(params, mesh, (seq, model))
+        with torch.no_grad():
+            y = mixer(torch.from_numpy(x[:, me * w:(me + 1) * w]),
+                      seq_axis_sharded=True)
+            # (tp, B, S, d): the whole output as each rank of tp has it
+            out["mixer_tp/" + name] = _gathered(y[None], mesh,
+                                                [(2, seq), (0, model)])
+            out["mixer_tp/" + name + "/local"] = \
+                fftconv_mixer_from_reference(params, device="cpu")(
+                    torch.from_numpy(x)).numpy()
 
 
 def _port_grads(rank, meshes, out):
@@ -718,6 +768,47 @@ def _port_grads(rank, meshes, out):
             every = [torch.empty_like(p.grad) for _ in range(pn)]
             dist.all_gather(every, p.grad, group=mesh.get_group(axis))
             out["mixer_grad/" + name + "/" + n] = torch.stack(every).numpy()
+    for name in TP_MIXERS:
+        mesh = meshes[name]
+        if mesh is None:                    # this rank is not in the mesh
+            continue
+        _port_tp_grads(name, mesh, params, x, wy, out)
+
+
+def _port_tp_grads(name, mesh, params, x, wy, out):
+    """The channel-parallel sharded mixer's gradients on ``mesh``: every
+    rank's blocks, stacked in rank order, and the control's (the filter
+    gradient summed over tp's axis too)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.models import blocks
+    seq, model = MESHES[name][1]
+    pn, me = comm.mesh_sizes(mesh)[seq], mesh.get_local_rank(seq)
+    blk = slice(me * x.shape[1] // pn, (me + 1) * x.shape[1] // pn)
+
+    def grads():
+        mixer = _channel_parallel_mixer(params, mesh, (seq, model))
+        xb = torch.from_numpy(x[:, blk]).requires_grad_()
+        (mixer(xb, seq_axis_sharded=True)
+         * torch.from_numpy(wy[:, blk])).sum().backward()
+        return dict(x=xb.grad, **{n: p.grad
+                                  for n, p in mixer.named_parameters()})
+
+    def stacked(t):
+        return _gathered(t[None], mesh, [(0, model), (0, seq)])
+    key = "mixer_tp_grad/" + name
+    got = grads()
+    # (tp, B, S, d): the input's gradient as each rank of tp has it
+    out[key + "/x"] = _gathered(got["x"][None], mesh, [(2, seq), (0, model)])
+    for n in TP_PARAMS[1:]:
+        out[f"{key}/{n}"] = stacked(got[n])
+    conv = blocks.fft_conv_seq_sharded
+    blocks.fft_conv_seq_sharded = \
+        lambda *a, channel_axis=None, **kw: conv(*a, **kw)
+    try:
+        out[key + "/control/filt"] = stacked(grads()["filt"])
+    finally:
+        blocks.fft_conv_seq_sharded = conv
 
 
 def port_main(out_path, hw_json):
@@ -1041,6 +1132,63 @@ def test_sharded_mixer_gradient_matches_the_unsharded_mixer(runs, mesh):
         got = ours[f"mixer_grad/{mesh}/{n}"]
         assert (got == got[0]).all(), n     # whole on every rank
         _close(got[0], ours["mixer_grad/local/" + n], n)
+
+
+@pytest.mark.parametrize("mesh", TP_MIXERS)
+def test_channel_parallel_sharded_mixer_matches_unsharded_and_the_reference(
+        runs, mesh):
+    ours = runs["port"][0]["mixer_tp/" + mesh]
+    local = runs["port"][0]["mixer_tp/" + mesh + "/local"]
+    theirs = runs["ref"][0]["mixer_tp/" + mesh]
+    tp = MESHES[mesh][0][1]
+    assert local.shape == theirs.shape == (
+        MIXER["b"], MIXER["length"], MIXER["d"])
+    assert ours.shape == (tp,) + theirs.shape
+    scale = np.abs(theirs).max()
+    for y in ours:                  # as every rank of tp has it
+        assert np.abs(y - local).max() <= 1e-4 * scale
+        assert np.abs(y - theirs).max() <= 1e-4 * scale
+
+
+def _tp_block(name, whole, j, tp):
+    """Rank j of tp's block of the unsharded mixer's gradient ``whole``:
+    ``w_in``'s v and gate columns, ``w_out``'s rows; ``filt`` and ``skip``
+    whole."""
+    if name == "w_in":
+        d = whole.shape[0]
+        w = d // tp
+        return np.concatenate([whole[:, j * w:(j + 1) * w],
+                               whole[:, d + j * w:d + (j + 1) * w]], 1)
+    if name == "w_out":
+        w = whole.shape[0] // tp
+        return whole[j * w:(j + 1) * w]
+    return whole
+
+
+@pytest.mark.parametrize("name", TP_PARAMS)
+@pytest.mark.parametrize("mesh", TP_MIXERS)
+def test_channel_parallel_sharded_mixer_gradient_blocks(runs, mesh, name):
+    """Every rank's gradient of its blocks against the unsharded mixer's
+    matching slices."""
+    ours = runs["port"][0]
+    got = ours[f"mixer_tp_grad/{mesh}/{name}"]
+    whole = ours["mixer_grad/local/" + name]
+    tp = MESHES[mesh][0][1]
+    assert len(got) == (tp if name == "x" else int(np.prod(MESHES[mesh][0])))
+    for r, g in enumerate(got):
+        _close(g, _tp_block(name, whole, r % tp, tp), f"{name} rank {r}")
+
+
+@pytest.mark.parametrize("mesh", TP_MIXERS)
+def test_channel_parallel_mixer_filter_gradient_control_misses(runs, mesh):
+    """Summed over tp's axis as well, the filter gradient adds the other
+    channels' gradients of the same shape: out of the limit."""
+    ours = runs["port"][0]
+    want = ours["mixer_grad/local/filt"]
+    got = ours[f"mixer_tp_grad/{mesh}/control/filt"]
+    assert got.shape == (int(np.prod(MESHES[mesh][0])),) + want.shape
+    assert all(np.abs(g - want).max() > GRAD_TOL * np.abs(want).max()
+               for g in got)
 
 
 if __name__ == "__main__":

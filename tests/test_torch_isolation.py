@@ -75,7 +75,9 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
               ROOT / "examples" / "pipeline_lm_torch.py",
               ROOT / "scripts" / "dist_times.py",
               ROOT / "scripts" / "dist_train.py",
-              ROOT / "scripts" / "dist_serve.py"]
+              ROOT / "scripts" / "dist_serve.py",
+              ROOT / "experiments" / "fft_roofline_torch.py",
+              ROOT / "experiments" / "make_tables_torch.py"]
     assert {"comm.py", "dfft.py", "api.py", "fftconv.py", "compress.py",
             "lm.py", "serve.py", "olmo_1b.py", "ssm.py",
             "frontend.py", "adamw.py", "pipeline.py", "manager.py",
@@ -83,7 +85,8 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             "fftconv_lm_torch.py", "rules.py", "mesh.py",
             "serve_lm_torch.py", "dist_train.py", "specs.py",
             "dist_serve.py", "pipelined_lm.py", "dryrun.py",
-            "pipeline_lm_torch.py"} <= {
+            "pipeline_lm_torch.py", "fft_roofline_torch.py",
+            "make_tables_torch.py"} <= {
                 f.name for f in files}
     assert {"parallel/pipeline.py", "data/pipeline.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
